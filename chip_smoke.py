@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,32 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 
 1. the card's name and power limit (``nvidia-smi``), torch version, and
    compute capability, which must be 9.0;
-2. building the swarm kernels from ``src/repro_torch/kernels/swarm/csrc``;
+2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
+   ``nvcc`` for each source, all started together;
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
-   version, index-exact, at the main path's shape and on edge cases;
-4. the main path: ``fleet_scaling.json`` as a 1,000,000-peer flash crowd at
-   ``dt = 16`` through ``ScenarioSpec.build("fleet").run()`` with
-   ``backend="pallas"``, held to the float64 golden of
-   ``BENCH_swarm_scaling.json``; the kernels' launch counts are read from
+   version, index-exact, at the fleet path's shape and on edge cases;
+4. K3 (device checksum) on the card against its plain version, exact,
+   on every dtype it reads, lengths 1-7, ``n = b``, ragged ``n``,
+   ``block=512``, blocks large enough for the reference's uint32 sums to
+   wrap, and a misaligned view;
+5. the fleet path: ``fleet_scaling.json`` as a 1,000,000-peer flash crowd
+   at ``dt = 16`` through ``ScenarioSpec.build("fleet").run()`` exactly as
+   committed apart from ``n`` and ``dt`` (a file naming no backend runs the
+   device tick), held to the float64 golden of
+   ``BENCH_swarm_scaling.json``; K1's and K2's launch counts are read from
    this run alone;
-5. K2 (max-min water-filling) on the card against its plain version,
+6. K2 (max-min water-filling) on the card against its plain version,
    bit-exact (rates, rounds and each round's active-flow count), on flow
-   tables captured from the main path and on small random topologies
+   tables captured from the fleet path and on small random topologies
    (also within 1e-3 of the float64 numpy water-fill);
-6. one JSON line of per-kernel numbers, then the last line
+7. the checkpoint broadcast path: stage 2 of
+   ``python -m repro_torch.examples.checkpoint_broadcast`` on an 8 GiB
+   (2**33-byte) bundle made from a seed, through a one-rank NCCL group:
+   stripe, all-gather, K3 on the replica, ``verify_replicas``; K3's launch
+   count is read from this run alone. The replica must equal the payload,
+   its checksum must equal the stripe's and K3's plain version's, and a
+   bit flipped above index 2**32 must change it;
+8. one JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -45,10 +58,18 @@ GOLDENS = ROOT / "BENCH_swarm_scaling.json"
 N_PEERS = 1_000_000
 DT = 16.0
 GOLDEN_ROW = "scaling/fleet_n1000000"
-# H100 SXM data sheet: HBM rate, and float32 outside the tensor cores
+# H100 SXM data sheet: HBM rate, and float32 outside the tensor cores;
+# 32-bit integer operations run on half as many lanes (64 INT32 against
+# 128 FP32 a streaming multiprocessor)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-KERNEL_SOURCE = "src/repro_torch/kernels/swarm/csrc/swarm_kernels.cu"
+I32_OPS_PER_S = F32_OPS_PER_S / 2
+SWARM_SOURCE = "src/repro_torch/kernels/swarm/csrc/swarm_kernels.cu"
+CHECKSUM_SOURCE = "src/repro_torch/kernels/checksum/csrc/checksum_kernels.cu"
+# the checkpoint bundle: 2**33 bytes, a bf16 checkpoint of ~4.3B parameters
+BUNDLE_BYTES = 1 << 33
+BUNDLE_SEED = 12
+FLIP_AT = (1 << 32) + 12345
 
 
 def log(msg: str) -> None:
@@ -81,11 +102,13 @@ def median_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple[float, str]:
     """The least time in ms the card could take: the larger of the bytes
-    over the memory rate and the float32 operations over their peak."""
+    over the memory rate and the operations over their peak (float32
+    unless ``ops_per_s`` says otherwise)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / F32_OPS_PER_S * 1e3
+    by_ops = nops / ops_per_s * 1e3
     by = "bytes" if by_bytes >= by_ops else "operations"
     return max(by_bytes, by_ops), by
 
@@ -150,7 +173,7 @@ def check_k1(kernels, dev):
     return {
         "name": "rarest_argmin",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": SWARM_SOURCE,
         "replaces": "src/repro/kernels/swarm/kernel.py:64",
         "max_abs_err": worst,
         "matched": True,
@@ -163,13 +186,14 @@ def check_k1(kernels, dev):
     }
 
 
-# ------------------------------------------------------------------ main path
+# ------------------------------------------------------------------ fleet path
 
 
 def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
                   device=None):
-    """The flash crowd through the port's scenario entry point (``device``
-    None = the CUDA card, as a user calls it)."""
+    """The flash crowd through the port's scenario entry point, as a user
+    calls it: the committed file with ``n`` and ``dt`` replaced, on
+    ``device`` (None = the CUDA card)."""
     import numpy as np
     import torch
 
@@ -180,8 +204,7 @@ def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
     spec = dataclasses.replace(
         spec,
         arrivals=(dataclasses.replace(spec.arrivals[0], n=n),),
-        fleet=dataclasses.replace(spec.fleet, dt=dt, jit=False,
-                                  backend="pallas"),
+        fleet=dataclasses.replace(spec.fleet, dt=dt),
     )
     compiled = spec.build("fleet", device=device)
     sim = next(iter(compiled.sims.values()))
@@ -235,18 +258,18 @@ def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
     golden = next(r for r in json.loads(GOLDENS.read_text())["rows"]
                   if r["name"] == golden_row)["derived"]
     g_tall = float(re.search(r"t_all=([0-9.]+)s", golden).group(1))
-    log(f"main path: n={res.n} dt={res.dt} ticks={res.ticks} "
+    log(f"fleet path: n={res.n} dt={res.dt} ticks={res.ticks} "
         f"t_all={t_all:.0f}s copies={copies:.2f} ud={res.ud_ratio:.1f} "
         f"done={int(done.sum())}/{res.n} wall={wall:.1f}s "
         f"us_per_client_tick={wall * 1e6 / (res.n * res.ticks):.3f}")
-    log(f"main path golden ({golden_row}, float64 numpy): {golden}")
-    log("main path phase_seconds: " + json.dumps(res.phase_seconds))
+    log(f"fleet path golden ({golden_row}, float64 numpy): {golden}")
+    log("fleet path phase_seconds: " + json.dumps(res.phase_seconds))
     k2_in_run = sum(k2_seconds)
-    log(f"main path waterfill phase split: {k2_in_run:.3f}s in the K2 "
+    log(f"fleet path waterfill phase split: {k2_in_run:.3f}s in the K2 "
         f"dispatch over {len(k2_seconds)} calls, "
         f"{res.phase_seconds['waterfill'] - k2_in_run:.3f}s host table "
         "build, upload and download")
-    log(f"main path launches: {json.dumps(launches)}")
+    log(f"fleet path launches: {json.dumps(launches)}")
     if int(done.sum()) != n:
         fail(f"only {int(done.sum())}/{n} peers completed")
     band = max(5 * dt, 0.03 * g_tall)
@@ -254,7 +277,7 @@ def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
         fail(f"t_all={t_all}s is outside {g_tall}s +- {band}s")
     for name, count in launches.items():
         if count <= 0:
-            fail(f"the main path never launched the {name} kernel")
+            fail(f"the fleet path never launched the {name} kernel")
     return launches, tables, {
         "ticks": res.ticks, "t_all": t_all, "copies": copies, "wall_s": wall,
         "phase_seconds": res.phase_seconds, "k2_dispatch_s": k2_in_run,
@@ -346,7 +369,7 @@ def check_k2(kernels, dev, tables):
     return {
         "name": "waterfill",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": SWARM_SOURCE,
         "replaces": "src/repro/kernels/swarm/kernel.py:145",
         "max_abs_err": worst,
         "matched": True,
@@ -359,6 +382,172 @@ def check_k2(kernels, dev, tables):
         "rounds": len(active),
         "active_per_round": active,
         "round_bound_ms": round_bound_ms,
+    }
+
+
+# ------------------------------------------------------------------ K3
+
+
+def k3_inputs(rng, dtype, n):
+    """``n`` elements of ``dtype`` from ``rng``, spanning the dtype's
+    range (negative integers, float specials) on the host."""
+    import numpy as np
+    import torch
+
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.random(n) < 0.5)
+    if dtype.is_floating_point:
+        x = rng.normal(scale=1e3, size=n)
+        specials = [0.0, -0.0, np.inf, -np.inf, 1e-42, 6e-8, 1e300, -1e-300]
+        x[: min(n, len(specials))] = specials[:n]
+        if dtype == torch.float32 and n > len(specials):
+            x[len(specials)] = np.nan
+        return torch.from_numpy(x).to(dtype)
+    info = torch.iinfo(dtype)
+    bits = torch.from_numpy(rng.bit_generator.random_raw(n).view(np.int64))
+    if info.bits == 64:
+        return bits.view(dtype)
+    return (bits % (1 << info.bits) + info.min).to(dtype)
+
+
+def check_k3(kernels, dev):
+    """K3 vs its plain version on the card, exact, on small and awkward
+    inputs (the full-size bundle is checked on the broadcast path)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13)
+    cases = []
+    for dtype in kernels.ref.DTYPES:
+        for n in (1, 2, 3, 4, 5, 6, 7, 2048, 2048 * 5 + 3, 100_003):
+            cases.append((f"{dtype} n={n}", k3_inputs(rng, dtype, n), 2048))
+    for dtype in (torch.uint8, torch.int32, torch.float16):
+        cases.append((f"{dtype} n=b=512", k3_inputs(rng, dtype, 512), 512))
+        cases.append((f"{dtype} n=4096 block=512",
+                      k3_inputs(rng, dtype, 4096), 512))
+        cases.append((f"{dtype} ragged block=512",
+                      k3_inputs(rng, dtype, 512 * 7 + 100), 512))
+    # blocks past 32768 words take the kernel's wrapping path; at 2*10^5
+    # words of full-range uint32 the reference's uint32 sums do wrap
+    cases.append(("uint32 block=200000 (sums wrap)",
+                  k3_inputs(rng, torch.uint32, 450_000), 200_000))
+    cases.append(("int8 block=40000", k3_inputs(rng, torch.int8, 90_001),
+                  40_000))
+    cases.append(("uint8 n=b=32768", k3_inputs(rng, torch.uint8, 32768),
+                  32768))
+    big = k3_inputs(rng, torch.uint8, 1 << 20)
+    cases.append(("uint8 misaligned view", big[1:], 2048))
+    cases.append(("float64 misaligned view",
+                  k3_inputs(rng, torch.float64, 10_000)[3:], 2048))
+    for name, x, block in cases:
+        x = x.to(dev)
+        b = min(block, max(x.numel(), 8))
+        got = kernels.checksum_cuda(x, b)
+        want = kernels.checksum_ref(x, b)
+        if not torch.equal(got, want):
+            fail(f"K3 {name}: {got.tolist()} vs plain {want.tolist()}")
+    torch.cuda.synchronize()
+    log(f"K3 {len(cases)} cases (every dtype, n=1..7, n=b, ragged n, "
+        "block=512, wrapping blocks, misaligned views): exact")
+
+
+# ------------------------------------------------------------------ broadcast
+
+
+def run_broadcast_path(kernels, nbytes=BUNDLE_BYTES, device=None):
+    """Stage 2 of the checkpoint broadcast example on a ``nbytes`` bundle
+    through a one-rank group on ``device`` (None = the CUDA card, over
+    NCCL), with its checks; returns K3's record and the path's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.collective_fabric import (
+        allgather_bundle, local_stripe, single_rank_group,
+    )
+    from repro_torch.examples.checkpoint_broadcast import (
+        collective_stage, make_bundle, replica_matches,
+    )
+
+    t0 = time.perf_counter()
+    payload = make_bundle(nbytes, BUNDLE_SEED)
+    log(f"broadcast path: {nbytes} byte bundle from seed {BUNDLE_SEED} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    group = single_rank_group(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.checksum_cuda.launches = 0
+    t0 = time.perf_counter()
+    rep = collective_stage(payload, group, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.checksum_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"broadcast path: {rep.length} bytes over "
+        f"{dist.get_world_size(group)} rank(s), replica "
+        f"{tuple(rep.replicated.shape)}, checksum {rep.checksum.tolist()}, "
+        f"replicas agree {rep.agree}, wall {wall:.2f}s, K3 launches "
+        f"{launches}, peak device memory {peak / 2**30:.2f} GiB")
+    if not rep.agree:
+        fail("verify_replicas found the ranks' checksums unequal")
+    if launches <= 0:
+        fail("the broadcast path never launched the checksum kernel")
+    if not replica_matches(rep.replicated, payload):
+        fail("the replicated bundle differs from the payload")
+    log("broadcast path: replica equals the payload byte for byte")
+    flat = rep.replicated.view(-1)
+    before = kernels.device_checksum(rep.stripe)
+    if not torch.equal(before, rep.checksum):
+        fail(f"replica checksum {rep.checksum.tolist()} differs from the "
+             f"stripes' {before.tolist()} taken before the gather")
+    plain = kernels.checksum_ref(flat, 2048)
+    if not torch.equal(plain, rep.checksum):
+        fail(f"K3 {rep.checksum.tolist()} differs from its plain version "
+             f"{plain.tolist()} on the {flat.numel()}-element bundle")
+    log("broadcast path: checksum equals the stripes' and the plain "
+        "version's")
+    flip = flat[FLIP_AT:FLIP_AT + 1]
+    flip.bitwise_xor_(1)
+    bad = kernels.device_checksum(rep.replicated)
+    if torch.equal(bad, rep.checksum) or kernels.verify_replicas(
+            [rep.checksum, bad]):
+        fail(f"a bit flipped at index {FLIP_AT} went undetected")
+    flip.bitwise_xor_(1)
+    log(f"broadcast path: bit flipped at index {FLIP_AT} detected "
+        f"({rep.checksum.tolist()} -> {bad.tolist()})")
+
+    ms = median_ms(lambda: kernels.checksum_cuda(flat, 2048), reps=10)
+    plain_ms = median_ms(lambda: kernels.checksum_ref(flat, 2048), reps=3)
+    gather_ms = median_ms(lambda: allgather_bundle(rep.stripe, group),
+                          reps=3)
+    # the stage's host-to-device copy of this rank's stripe, alone
+    t0 = time.perf_counter()
+    local_stripe(payload, group, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    n = flat.numel()
+    # the bundle read once and (S1, S2) written once; an add and a
+    # multiply-add for each element
+    bound_ms, bound_by = bound(n * flat.element_size() + 16, 2 * n,
+                               I32_OPS_PER_S)
+    dist.destroy_process_group()
+    return {
+        "name": "checksum",
+        "route": "cuda",
+        "source": CHECKSUM_SOURCE,
+        "replaces": "src/repro/kernels/checksum/kernel.py:26",
+        "launches": launches,
+        "max_abs_err": 0,
+        "matched": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [n],
+        "dtype": str(flat.dtype),
+    }, {
+        "bytes": n, "wall_s": wall, "stripe_upload_s": upload_s,
+        "allgather_ms": gather_ms, "peak_gib": peak / 2**30,
     }
 
 
@@ -378,6 +567,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compat import require_hopper
+    from repro_torch.kernels import checksum as k3
+    from repro_torch.kernels import nvcc
     from repro_torch.kernels import swarm as kernels
 
     smi = subprocess.run(
@@ -393,16 +584,23 @@ def main() -> int:
     require_hopper(dev)
 
     t0 = time.perf_counter()
-    lib = kernels.kernel.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f}s")
+    libs = nvcc.build(
+        (kernels.kernel.SOURCE, kernels.kernel.NVCC_FLAGS),
+        (k3.kernel.SOURCE, k3.kernel.NVCC_FLAGS),
+    )
+    log(f"build: {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f}s")
 
     k1 = check_k1(kernels, dev)
+    check_k3(k3, dev)
     launches, tables, outcome = run_main_path(kernels)
     k2 = check_k2(kernels, dev, tables)
     k1["launches"] = launches["rarest_argmin"]
     k2["launches"] = launches["waterfill"]
-    log("main path outcome: " + json.dumps(outcome))
-    log(json.dumps({"kernels": [k1, k2]}))
+    log("fleet path outcome: " + json.dumps(outcome))
+    k3_record, broadcast = run_broadcast_path(k3)
+    log("broadcast path outcome: " + json.dumps(broadcast))
+    log(json.dumps({"kernels": [k1, k2, k3_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,11 @@ The same paper system (the Academic Torrents distribution fabric,
 simulated), with the fleet engine's device tick running as hand-written
 CUDA kernels for Hopper (``sm_90a``) instead of Pallas kernels for a TPU.
 The JAX package stays the reference; this package imports neither it nor
-JAX. Ported so far: the framework-free core (:mod:`repro_torch.core`) and
-the swarm kernels (:mod:`repro_torch.kernels.swarm`).
+JAX. Ported so far: the framework-free core and the collective fabric
+(:mod:`repro_torch.core`), the swarm and checksum kernels
+(:mod:`repro_torch.kernels`), the data ingest modules
+(:mod:`repro_torch.data`) and the checkpoint broadcast walkthrough
+(:mod:`repro_torch.examples.checkpoint_broadcast`).
 
 Device rule: entry points that run on a device take ``device=None``,
 which means CUDA and raises when CUDA is missing; ``device="cpu"`` runs

@@ -9,11 +9,10 @@ who wants the CPU says so with ``device="cpu"``.
 
 from __future__ import annotations
 
-import torch
+import warnings
 
-#: Whether this process sees a CUDA card (informational; every decision
-#: below asks torch again at call time).
-HAS_CUDA = torch.cuda.is_available()
+import numpy as np
+import torch
 
 #: The compute capability the CUDA kernels are built for (``sm_90a``).
 HOPPER = (9, 0)
@@ -52,3 +51,17 @@ def require_hopper(device) -> None:
             f"the CUDA kernels are built for sm_90a (compute capability "
             f"{HOPPER}); {device} has {got}"
         )
+
+
+def host_tensor(data) -> torch.Tensor:
+    """A numpy array (in its own dtype) or any other bytes-like object (as
+    uint8) as a host tensor that aliases it, without a copy. Callers only
+    read it or copy it to a device, so torch's warning about read-only
+    buffers is moot and is not shown."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings(
+            "ignore", message="The given (buffer|NumPy array) is not writable"
+        )
+        if isinstance(data, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(data))
+        return torch.frombuffer(memoryview(data).cast("B"), dtype=torch.uint8)

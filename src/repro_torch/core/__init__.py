@@ -8,16 +8,40 @@ byte-accurate local engine (functional data plane), plus the TPU-cluster
 adaptations: locality-aware peer ranking and collective-assisted (ICI
 all-gather) replication.
 
-This is the PyTorch port's copy of :mod:`repro.core`. The modules here are
-the framework-free ones the scenario layer needs, copied unchanged, plus
-the fleet engine, whose float32 backends run the CUDA kernels of
-:mod:`repro_torch.kernels.swarm`. ``accounting``, ``http_baseline`` and
-``collective_fabric`` are not ported yet.
+This is the PyTorch port's copy of :mod:`repro.core`. The framework-free
+modules are copied unchanged; the fleet engine's device tick runs the CUDA
+kernels of :mod:`repro_torch.kernels.swarm`, and ``collective_fabric``
+replicates bundles with ``torch.distributed`` where the reference uses a
+JAX mesh.
 """
+
+from .accounting import (
+    AT_SPEED_BPS,
+    CostModel,
+    HTTP_SPEED_BPS,
+    PAPER_UD_RATIO,
+    Projection,
+    TABLE1_DATASETS,
+    paper_table1,
+    project_row,
+    reddit_case_study,
+    ud_ratio,
+)
 
 from .bitfield import Bitfield, availability
 from .choking import Choker, ChokerConfig, RateWindow
+from .collective_fabric import (
+    ColdstartEstimate,
+    allgather_bundle,
+    broadcast_bundle,
+    bundle_to_bytes,
+    coldstart_time,
+    local_stripe,
+    single_rank_group,
+    stripe_shards,
+)
 from .fleet import FleetResult, FleetSpec, FleetSwarmSim, waterfill_rates
+from .http_baseline import HttpResult, analytic_http, simulate_http
 from .metainfo import FileEntry, MetaInfo, assemble, piece_hash
 from .netsim import FluidNetwork, Flow, Link, Node
 from .peer import Ledger, PeerAgent

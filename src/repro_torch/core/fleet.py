@@ -17,15 +17,16 @@ to the *whole* hot path:
   filling as a standalone fixed-point array iteration with the exact
   structure (and float semantics) of ``_recompute_rates``, so the two are
   equivalence-tested against each other on random topologies;
-* one tick is one synchronous vectorized step of ``dt`` seconds — numpy
-  first, with device offload behind ``FleetSpec.backend``: ``"jit"``
-  routes water-filling through the float32 water-filling kernel,
-  ``"pallas"`` makes the tick device-resident — the have matrix, replica
+* one tick is one synchronous vectorized step of ``dt`` seconds, with its
+  compute path behind ``FleetSpec.backend``: ``"pallas"``, the port's
+  default, makes the tick device-resident — the have matrix, replica
   counts, and tie-break jitter stay on the device across ticks and
   selection + water-filling run as the CUDA kernels of
-  :mod:`repro_torch.kernels.swarm`. The backend names are the scenario
-  files' own; on a CPU tensor each kernel is its plain PyTorch version.
-  Float32 backends are a throughput choice, never used for goldens.
+  :mod:`repro_torch.kernels.swarm`; ``"jit"`` routes water-filling alone
+  through the float32 water-filling kernel; ``"numpy"`` is the float64
+  host path. The backend names are the scenario files' own; on a CPU
+  tensor each kernel is its plain PyTorch version. The float32 backends
+  are a throughput choice; the goldens are held through ``"numpy"``.
 
 Fidelity model (the documented small-N equivalence bound)
 ---------------------------------------------------------
@@ -190,19 +191,22 @@ class FleetSpec:
 
     ``backend`` selects the tick's compute path:
 
-    - ``"numpy"`` — the float64 reference semantics (the goldens path);
+    - ``"pallas"`` (the port's default) — device-resident tick:
+      rarest-argmin selection + water-fill kernels
+      (``repro_torch.kernels.swarm``), have-matrix / replica counts /
+      jitter held on the device across ticks;
     - ``"jit"`` — water-filling through the float32 water-filling kernel
       with host selection (spine-linked topologies go to numpy);
-    - ``"pallas"`` — device-resident tick: rarest-argmin selection +
-      water-fill kernels (``repro_torch.kernels.swarm``), have-matrix /
-      replica counts / jitter held on the device across ticks.
+    - ``"numpy"`` — the float64 reference semantics on the host (the
+      goldens path), only when asked for by name.
 
     Both float32 backends run on the engine's ``device``: CUDA unless the
     caller asks for the CPU, where the kernels' plain PyTorch versions run.
 
     ``None`` normalizes from the deprecated ``jit`` flag (``True`` ->
-    ``"jit"``, else ``"numpy"``); after ``__post_init__`` the two fields
-    are always consistent (``jit == (backend == "jit")``).
+    ``"jit"``, else ``"pallas"``; the reference resolves it to
+    ``"numpy"``); after ``__post_init__`` the two fields are always
+    consistent (``jit == (backend == "jit")``).
     """
 
     dt: Optional[float] = None
@@ -222,7 +226,7 @@ class FleetSpec:
                     DeprecationWarning,
                     stacklevel=2,
                 )
-            self.backend = "jit" if self.jit else "numpy"
+            self.backend = "jit" if self.jit else "pallas"
         elif self.backend not in ("numpy", "jit", "pallas"):
             raise ValueError(
                 f"fleet backend must be numpy|jit|pallas (got {self.backend!r})"

@@ -5,7 +5,8 @@ PyTorch version, which runs on any device), ``kernel.py`` (the CUDA
 kernel's build, binding and launch wrapper) with its sources under
 ``csrc/``, and ``ops.py`` (dispatch by the device of the tensors: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
-raises).
+raises). ``nvcc.py`` builds and loads every CUDA source the same way.
 
-  swarm/  masked rarest-argmin + max-min water-filling (the fleet tick)
+  swarm/     masked rarest-argmin + max-min water-filling (the fleet tick)
+  checksum/  the device checksum (checkpoint bundle integrity)
 """

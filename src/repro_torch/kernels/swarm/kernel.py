@@ -1,11 +1,9 @@
 """CUDA swarm kernels for Hopper: build, binding and launch wrappers.
 
-The kernels live in ``csrc/swarm_kernels.cu`` behind a plain C interface.
-At first use :func:`build` compiles that source with ``nvcc`` for
-``sm_90a`` into ``build/repro_torch/`` at the root of the checkout (the
-file name carries a hash of the source and flags, so an edit rebuilds),
-and :func:`_lib` loads it with ``ctypes``. Nothing is compiled or loaded
-when this module is imported.
+The kernels live in ``csrc/swarm_kernels.cu`` behind a plain C interface,
+built and loaded at first use by :mod:`repro_torch.kernels.nvcc`
+(``sm_90a``, ``ctypes``). Nothing is compiled or loaded when this module
+is imported.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate outputs and scratch with torch on the tensors'
@@ -24,9 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -34,59 +29,22 @@ import torch
 
 from ...compat import require_hopper
 from ...core.piece_selection import MAX_EXACT_AVAILABILITY
+from .. import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swarm_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 #: -fmad=false keeps every multiply and add separately rounded (the
 #: water-fill is bit-exact with its plain version); no --use_fast_math,
 #: so division stays IEEE.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+NVCC_FLAGS = (*nvcc.BASE_FLAGS, "-fmad=false")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError(
-            "no CUDA toolkit found (set CUDA_HOME or put nvcc on PATH): "
-            "the swarm kernels are built from source at first use"
-        )
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build() -> Path:
-    """Compile the kernels if this source and these flags have no library
-    yet; return the library's path."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libswarm_kernels_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = nvcc.load(SOURCE, NVCC_FLAGS)
     lib.rarest_argmin_launch.argtypes = [_P, _P, _P, _P, _I64, _I, _P]
     lib.rarest_argmin_launch.restype = _I
     lib.waterfill_launch.argtypes = [

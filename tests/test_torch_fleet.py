@@ -9,12 +9,15 @@
   stay inside the bands the reference holds its Pallas backend to
   (``tests/test_kernels_swarm.py``), against both the JAX Pallas backend
   and the numpy backend;
-- without CUDA a float32 backend asked for no particular device raises.
+- without CUDA a float32 backend asked for no particular device raises;
+- a fleet scenario that names no backend runs the device tick, so a
+  committed file built as a user builds it needs CUDA.
 """
 
 import dataclasses
 import json
 import pathlib
+import warnings
 
 import numpy as np
 import pytest
@@ -160,7 +163,8 @@ def test_numpy_backend_reproduces_fleet_n2000_golden():
     )
     spec = ScenarioSpec.load(SCENARIOS / "fleet_scaling.json")
     spec = dataclasses.replace(
-        spec, arrivals=(dataclasses.replace(spec.arrivals[0], n=2000),)
+        spec, arrivals=(dataclasses.replace(spec.arrivals[0], n=2000),),
+        fleet=dataclasses.replace(spec.fleet, backend="numpy"),
     )
     res = spec.build("fleet").run().primary
     done = np.isfinite(res.completed_at)
@@ -212,6 +216,34 @@ def test_jit_backend_on_cpu_within_reference_bands():
 
 
 # ------------------------------------------------------------------ devices
+
+
+@pytest.mark.parametrize("kw,backend", [
+    ({}, "pallas"),
+    ({"backend": "numpy"}, "numpy"),
+    ({"backend": "jit"}, "jit"),
+    ({"jit": True}, "jit"),
+])
+def test_fleet_spec_backend_resolution(kw, backend):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        spec = FleetSpec(**kw)
+    assert (spec.backend, spec.jit) == (backend, backend == "jit")
+    assert FleetSpec.from_dict(spec.to_dict()) == spec
+
+
+def test_committed_fleet_file_runs_the_device_tick(monkeypatch):
+    spec = ScenarioSpec.load(SCENARIOS / "fleet_smoke.json")
+    assert "backend" not in json.loads(
+        (SCENARIOS / "fleet_smoke.json").read_text())["fleet"]
+    assert spec.fleet.backend == "pallas"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spec.build("fleet")
+    dev = next(iter(spec.build("fleet", device="cpu").sims.values())).run()
+    host = dataclasses.replace(
+        spec, fleet=dataclasses.replace(spec.fleet, backend="numpy"))
+    _assert_bands(dev, next(iter(host.build("fleet").sims.values())).run())
 
 
 def _tiny_sim(backend, **kw):

@@ -29,7 +29,11 @@ def _env():
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
         "import sys\n"
-        "import repro_torch.core.scenario, repro_torch.kernels.swarm\n"
+        "import repro_torch.core, repro_torch.core.scenario\n"
+        "import repro_torch.core.collective_fabric\n"
+        "import repro_torch.kernels.swarm, repro_torch.kernels.checksum\n"
+        "import repro_torch.kernels.nvcc, repro_torch.data\n"
+        "import repro_torch.examples.checkpoint_broadcast\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
