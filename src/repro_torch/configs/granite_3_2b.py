@@ -1,0 +1,22 @@
+"""IBM Granite-3.0 2B — plain dense GQA trunk.
+
+[hf:ibm-granite/granite-3.0-2b-base; hf-verified]
+40L, d_model 2048, 32 heads (GQA kv=8, head_dim 64), d_ff 8192 (SwiGLU),
+vocab 49155.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    num_layers=40,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    act="swiglu",
+    tie_embeddings=True,
+)

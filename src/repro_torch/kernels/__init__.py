@@ -7,6 +7,7 @@ kernel's build, binding and launch wrapper) with its sources under
 tensor takes the plain version, a CUDA tensor launches the kernel or
 raises). ``nvcc.py`` builds and loads every CUDA source the same way.
 
-  swarm/     masked rarest-argmin + max-min water-filling (the fleet tick)
-  checksum/  the device checksum (checkpoint bundle integrity)
+  swarm/      masked rarest-argmin + max-min water-filling (the fleet tick)
+  checksum/   the device checksum (checkpoint bundle integrity)
+  attention/  flash-attention forward (the models' sequence attention)
 """

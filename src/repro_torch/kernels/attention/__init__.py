@@ -1,0 +1,10 @@
+from .kernel import flash_attention_cuda
+from .ops import flash_attention
+from .ref import attention_bhsd_ref, attention_ref
+
+__all__ = [
+    "attention_bhsd_ref",
+    "attention_ref",
+    "flash_attention",
+    "flash_attention_cuda",
+]

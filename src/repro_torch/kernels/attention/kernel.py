@@ -1,0 +1,123 @@
+"""CUDA flash-attention forward (K4) for Hopper: build, binding and launch
+wrapper.
+
+The kernel lives in ``csrc/attention_kernels.cu`` behind a plain C
+interface, built and loaded at first use by :mod:`repro_torch.kernels.nvcc`
+(``sm_90a``, ``ctypes``). Nothing is compiled or loaded when this module is
+imported.
+
+:func:`flash_attention_cuda` replaces ``repro/kernels/attention/kernel.py``
+``_attn_kernel`` / ``flash_attention_bhsd`` and has its contract, in the
+``(B, H, S, D)`` layout: q ``(B, Hq, Sq, D)``, k and v ``(B, Hkv, Skv,
+D)``, float32 or bfloat16, ``D`` in 16/32/64/128/256, ``Hq`` a multiple of
+``Hkv``; keys at or past ``skv_valid`` are masked. Unlike the Pallas kernel
+it needs no block multiples: the kernel masks its own ragged tile. It
+takes contiguous CUDA tensors, allocates the output with torch, launches on
+torch's current stream, and raises when the C call returns a CUDA error
+(a refused launch never runs, and a later synchronisation would not say
+so). Its plain-integer ``launches`` counter goes up by one where it
+launches the kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+
+import torch
+
+from ...compat import require_hopper
+from .. import nvcc
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_kernels.cu"
+NVCC_FLAGS = nvcc.BASE_FLAGS
+
+#: dtype codes of the C interface (``enum Dtype`` in the source)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = nvcc.load(SOURCE, NVCC_FLAGS)
+    lib.attn_fwd_launch.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+    ]
+    lib.attn_fwd_launch.restype = _I
+    lib.attn_error_string.argtypes = [_I]
+    lib.attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention_cuda takes CUDA tensors "
+                             f"({name} is on {t.device})")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (B, H, S, D) "
+                             f"tensor (got shape {tuple(t.shape)})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or bfloat16 (got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype})")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    b, hq, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    if hq % k.shape[1]:
+        raise ValueError(f"{hq} query heads over {k.shape[1]} kv heads")
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,              # (B, Hq, Sq, D)
+    k: torch.Tensor,              # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    skv_valid: int | None = None,
+) -> torch.Tensor:
+    """``softmax(q kᵀ / sqrt(d)) v`` on the card, ``(B, Hq, Sq, D)`` in
+    q's dtype; the same contract as
+    :func:`~repro_torch.kernels.attention.ref.attention_bhsd_ref`."""
+    _check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    skv_valid = skv if skv_valid is None else int(skv_valid)
+    if not 0 <= skv_valid <= skv:
+        raise ValueError(f"skv_valid {skv_valid} outside [0, {skv}]")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
+    require_hopper(q.device)
+    out = torch.empty_like(q)
+    if out.numel() == 0 or skv == 0:
+        return out.zero_()
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        err = lib.attn_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], b, hq, hkv, sq, skv, d, skv_valid, int(causal),
+            int(window), float(softcap), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    flash_attention_cuda.launches += 1
+    if err != 0:
+        msg = lib.attn_error_string(err).decode()
+        raise RuntimeError(f"attention kernel failed: CUDA error {err} ({msg})")
+    return out
+
+
+flash_attention_cuda.launches = 0

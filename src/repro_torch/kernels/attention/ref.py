@@ -1,0 +1,89 @@
+"""Plain PyTorch version of the flash-attention forward (K4).
+
+It runs on any device. The CPU tests hold it against the JAX package's
+``repro/kernels/attention/ref.py`` and Pallas kernel, and ``chip_smoke.py``
+holds the CUDA kernel against it on the card.
+
+It materialises the full ``(Sq, Skv)`` score matrix in float32, O(S^2)
+memory, so it is unambiguous rather than fast. Two forms:
+
+- :func:`attention_ref` in the model's ``(B, S, H, D)`` layout, the
+  counterpart of ``repro/kernels/attention/ref.py`` ``attention_ref``
+  (``q_offset`` shifts the query indices, as for a chunked prefill);
+- :func:`attention_bhsd_ref` in the ``(B, H, S, D)`` layout that the CUDA
+  wrapper's contract is stated in, with the reference kernel's
+  ``skv_valid`` (keys at or past it are masked).
+
+Scores are ``q·k / sqrt(d)`` with q cast to float32 and scaled first, the
+optional softcap ``c·tanh(s/c)`` is applied before the masks, masked
+scores are ``-2e38``, the softmax is float32 and the output takes the
+input's dtype. GQA: query head ``h`` reads key/value head ``h // (Hq/Hkv)``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def softcap_fn(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap)
+
+
+def _mask(sq: int, skv: int, *, causal: bool, window: int, q_offset: int,
+          skv_valid: int, device) -> torch.Tensor:
+    q_idx = q_offset + torch.arange(sq, device=device)[:, None]
+    k_idx = torch.arange(skv, device=device)[None, :]
+    mask = k_idx < skv_valid
+    if causal:
+        mask = mask & (q_idx >= k_idx)
+    if window > 0:
+        mask = mask & (q_idx - k_idx < window)
+    return mask
+
+
+def attention_bhsd_ref(
+    q: torch.Tensor,              # (B, Hq, Sq, D)
+    k: torch.Tensor,              # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,              # 0 => unbounded
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    skv_valid: int | None = None,
+) -> torch.Tensor:
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.to(torch.float32).reshape(b, hkv, g, sq, d) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32))
+    if softcap > 0:
+        s = softcap_fn(s, softcap)
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                 skv_valid=skv if skv_valid is None else skv_valid,
+                 device=q.device)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,              # (B, Sq, Hq, D)
+    k: torch.Tensor,              # (B, Skv, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,              # 0 => unbounded
+    q_offset: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    out = attention_bhsd_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+    )
+    return out.transpose(1, 2)

@@ -1,0 +1,60 @@
+"""Serving entry point: ``python -m repro_torch.launch.serve``.
+
+Initialises weights from a seed and serves batched generation through the
+slot engine, at the reduced size of the chosen architecture (the
+reference's ``.reduce()``), on the CUDA card (``--device cpu`` runs the
+kernels' plain PyTorch versions on the host). ``--ckpt-dir`` restore waits
+for the port of ``train/checkpoint.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..compat import resolve_device
+from ..configs import ARCH_IDS, get_config
+from ..models import build_model
+from ..serve import ServeConfig, ServeEngine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="gemma2_2b", choices=ARCH_IDS)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore params from a checkpoint directory")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir: checkpoint restore waits for the port of "
+            "train/checkpoint.py (ROADMAP.md queue 1 item 6)")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch).reduce()
+    bundle = build_model(cfg, dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+
+    engine = ServeEngine(bundle, params, ServeConfig(
+        max_new_tokens=args.new_tokens, temperature=args.temperature))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
+            for _ in range(args.requests)]
+    t0 = time.perf_counter()
+    outs = engine.serve_queue(reqs, slots=args.slots)
+    dt = time.perf_counter() - t0
+    print(f"[launch.serve] {args.requests} reqs x {args.new_tokens} new tokens "
+          f"in {dt:.2f}s ({sum(map(len, outs))/dt:.1f} tok/s) on {dev}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,11 @@
+"""repro_torch.models — the serving path's models (counterpart of
+``repro.models``): dense decoders of ``attn`` / ``local_attn`` blocks, whose
+sequence attention runs through the flash-attention kernel K4."""
+
+from .convert import params_from_jax
+from .model import ModelBundle, build_model, cross_entropy, default_positions
+
+__all__ = [
+    "ModelBundle", "build_model", "cross_entropy", "default_positions",
+    "params_from_jax",
+]

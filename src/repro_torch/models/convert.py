@@ -1,0 +1,78 @@
+"""Load a parameter tree in the JAX package's layout into the port's
+modules.
+
+The JAX package keeps a model's parameters as nested dicts with each
+block-pattern position's layers stacked along a leading axis
+(``groups/<i>/attn/wq`` of shape ``(group_count, d, hq, h)``). The port's
+modules hold one layer each (``groups.<i>.<g>.attn.wq``), so loading is a
+name map that splits the stacked axis. :func:`params_from_jax` takes that
+tree as numpy arrays (the caller turns jax arrays into numpy; the port
+never sees jax); :func:`load_tree` takes it as tensors, as ``init`` draws
+it. Both copy every leaf into the model and raise on a leaf left over, a
+parameter missing, or a shape that differs.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .layers import tree_leaves
+
+
+def _targets(path: str, leaf) -> list[tuple[str, Any]]:
+    """The module parameter name(s) of one JAX tree leaf and their values."""
+    parts = path.split("/")
+    if parts[0] == "groups":
+        # groups/<i>/<rest>, stacked: layer g is leaf[g]
+        head, rest = parts[:2], parts[2:]
+        return [(".".join([*head, str(g), *rest]), leaf[g])
+                for g in range(leaf.shape[0])]
+    return [(".".join(parts), leaf)]
+
+
+@torch.no_grad()
+def load_tree(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Copy a JAX-layout tree of tensors into ``model``'s parameters (cast
+    to their dtype and device); raises unless every leaf lands on a
+    parameter of its shape and every parameter is written."""
+    params = dict(model.named_parameters())
+    written = set()
+    leftover = []
+    for path, leaf in tree_leaves(tree):
+        for name, value in _targets(path, leaf):
+            if name not in params:
+                leftover.append(name)
+                continue
+            if tuple(value.shape) != tuple(params[name].shape):
+                raise ValueError(
+                    f"{path} -> {name}: shape {tuple(value.shape)} differs "
+                    f"from the model's {tuple(params[name].shape)}")
+            params[name].copy_(value)
+            written.add(name)
+    missing = sorted(set(params) - written)
+    if leftover or missing:
+        raise ValueError(f"parameter trees differ: {len(leftover)} leaves "
+                         f"with no parameter {leftover[:5]}, {len(missing)} "
+                         f"parameters with no leaf {missing[:5]}")
+    return model
+
+
+def params_from_jax(tree: dict, model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` (e.g. ``build_model(cfg).skeleton()``) with every
+    parameter taken from the JAX package's tree of numpy arrays
+    (``jax.tree.map(np.asarray, params)``)."""
+
+    def tensor(x) -> torch.Tensor:
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":      # ml_dtypes: no numpy bf16
+            return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(x))  # a writable copy
+
+    def to_tensors(t):
+        return ({k: to_tensors(v) for k, v in t.items()}
+                if isinstance(t, dict) else tensor(t))
+
+    return load_tree(model, to_tensors(tree))

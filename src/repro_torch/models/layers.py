@@ -1,0 +1,259 @@
+"""Shared layers + the ParamSpec machinery (counterpart of
+``repro/models/layers.py``).
+
+Every parameter leaf is declared by a :class:`ParamSpec` carrying its
+logical axes, in the JAX package's nested-dict tree, so the two packages'
+parameter trees have the same paths, shapes and init rule. The logical
+axes name how the JAX package shards a leaf on a mesh; the port runs on
+one card and keeps them only as documentation. The JAX package's sharding
+helpers (``constrain``, ``constrain_bsd``, ``constrain_bshd``,
+``gather_sp``) have no counterpart here: there is no mesh on one card
+(``ROADMAP.md`` queue 1 item 7).
+
+The functions take and return tensors of the caller's dtype and compute
+where the reference computes (norms, RoPE and softcaps in float32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# logical axis vocabulary (the JAX package's launch/partitioning.py rules)
+LAYERS, EMBED, MLP, VOCAB = "layers", "embed", "mlp", "vocab"
+QHEADS, KVHEADS, HEADDIM = "q_heads", "kv_heads", "head"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"     # normal | zeros | ones | embed | small
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             "in rank")
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` pairs of a tree of nested dicts, in sorted key
+    order (jax's order for dicts), paths joined with ``/``."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += tree_leaves(tree[k], f"{prefix}{k}/")
+        return out
+    return [(prefix[:-1], tree)]
+
+
+def stack_specs(specs: Any, n: int) -> Any:
+    """Prepend a stacked 'layers' axis to every spec in a tree."""
+    return tree_map(
+        lambda s: ParamSpec((n, *s.shape), (LAYERS, *s.axes), s.init, s.scale),
+        specs,
+    )
+
+
+def init_params(specs: Any, generator: torch.Generator, dtype: torch.dtype,
+                device) -> Any:
+    """A tree of tensors for a tree of specs, drawn from ``generator`` (on
+    ``device``) leaf by leaf in the tree's order. The reference's rule: zeros
+    or ones where the spec says so; otherwise a float32 normal times
+    ``scale / sqrt(fan_in)`` (``fan_in`` the second-last dim, or the last of a
+    vector), 0.02 for ``embed`` and ``small``, cast to ``dtype``. The numbers
+    differ from ``jax.random``'s for the same seed."""
+
+    def one(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=device)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        if spec.init in ("embed", "small"):
+            std = 0.02
+        else:
+            std = spec.scale / np.sqrt(max(fan_in, 1))
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * float(std)).to(dtype)
+
+    return tree_map(one, specs)
+
+
+class ParamTree(torch.nn.Module):
+    """An ``nn.Module`` tree of parameters, built from a tree of specs: a
+    dict becomes a module whose children are its keys, a list a
+    ``ModuleList`` of its items, a :class:`ParamSpec` an uninitialised
+    parameter of its shape. Parameter names are the spec tree's paths
+    joined with dots. ``node["key"]`` and ``"key" in node`` read a child or
+    parameter, so layer code takes a module or a dict alike."""
+
+    def __init__(self, specs: dict, dtype: torch.dtype, device):
+        super().__init__()
+        for key, spec in specs.items():
+            if isinstance(spec, ParamSpec):
+                self.register_parameter(key, torch.nn.Parameter(
+                    torch.empty(spec.shape, dtype=dtype, device=device),
+                    requires_grad=False))
+            elif isinstance(spec, list):
+                self.add_module(key, torch.nn.ModuleList(
+                    ParamTree(s, dtype, device) for s in spec))
+            else:
+                self.add_module(key, ParamTree(spec, dtype, device))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+# --------------------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    scale = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(dt) * (1.0 + gamma.to(dt))
+
+
+def rms_norm_spec(dim: int, axis_name: str = EMBED) -> ParamSpec:
+    # gamma is stored as an offset from 1 (gemma convention) so zeros-init
+    return ParamSpec((dim,), (axis_name,), init="zeros")
+
+
+def qk_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """RMS norm over the head dim (qwen3's qk_norm)."""
+    return rms_norm(x, gamma, eps)
+
+
+# --------------------------------------------------------------------------- softcap
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap <= 0:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- RoPE
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    half = head_dim // 2
+    return 1.0 / theta ** (np.arange(0, half, dtype=np.float32) / half)
+
+
+def apply_rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    theta: float = 10_000.0,
+    mode: str = "full",
+    sections: tuple[int, ...] = (),
+) -> torch.Tensor:
+    """Rotary embedding, three variants.
+
+    x: (B, S, H, D). positions: (B, S) int — or (3, B, S) for mode='mrope'
+    (temporal/height/width position streams, Qwen2-VL).
+
+    full: rotate all D dims. half: rotate only the first D/2 dims (ChatGLM's
+    2D/partial RoPE — the rest carries un-rotated content). mrope: the D/2
+    frequency slots are split into `sections` groups, each driven by its own
+    position stream.
+    """
+    d = x.shape[-1]
+    if mode == "half":
+        rot, keep = x.split(d // 2, dim=-1)
+        return torch.cat(
+            [apply_rope(rot, positions, theta=theta, mode="full"), keep], dim=-1
+        )
+    half = d // 2
+    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)
+    if mode == "mrope":
+        if positions.dim() != 3 or sum(sections) != half:
+            raise ValueError(f"mrope needs (3, B, S) positions and sections "
+                             f"summing to {half} (got {tuple(positions.shape)}, "
+                             f"{sections})")
+        parts = []
+        start = 0
+        for sec, pos in zip(sections, positions):
+            parts.append(pos[..., None].to(torch.float32)
+                         * freqs[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)                  # (B, S, half)
+    else:
+        angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- MLP
+
+
+def mlp_specs(d_model: int, d_ff: int, act: str) -> dict[str, ParamSpec]:
+    specs = {
+        "w_up": ParamSpec((d_model, d_ff), (EMBED, MLP)),
+        "w_down": ParamSpec((d_ff, d_model), (MLP, EMBED)),
+    }
+    if act in ("swiglu", "geglu"):
+        specs["w_gate"] = ParamSpec((d_model, d_ff), (EMBED, MLP))
+    return specs
+
+
+def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``params``: a mapping (or module) with ``w_up``, ``w_down`` and, for
+    the gated activations, ``w_gate``."""
+    up = x @ params["w_up"]
+    if act == "swiglu":
+        up = F.silu(x @ params["w_gate"]) * up
+    elif act == "geglu":
+        up = F.gelu(x @ params["w_gate"], approximate="tanh") * up
+    elif act == "gelu":
+        up = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(act)
+    return up @ params["w_down"]
+
+
+# --------------------------------------------------------------------------- embedding
+
+
+def embed_specs(vocab: int, d_model: int, tie: bool) -> dict[str, ParamSpec]:
+    specs = {"table": ParamSpec((vocab, d_model), (VOCAB, EMBED), init="embed")}
+    if not tie:
+        specs["head"] = ParamSpec((d_model, vocab), (EMBED, VOCAB))
+    return specs
+
+
+def embed_lookup(params, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
+    x = params["table"][tokens]
+    # gemma-style sqrt(d) scaling keeps tied-embedding logits sane
+    return x * torch.tensor(math.sqrt(d_model), dtype=x.dtype, device=x.device)
+
+
+def embed_logits(params, x: torch.Tensor) -> torch.Tensor:
+    if "head" in params:
+        return x @ params["head"]
+    return x @ params["table"].T

@@ -1,0 +1,127 @@
+"""``build_model(cfg)`` — the port's entry point to a model (counterpart of
+``repro/models/model.py``).
+
+Returns a :class:`ModelBundle` whose functions take the parameters first,
+as the JAX package's do: ``init(generator)`` gives the parameters, an
+``nn.Module`` tree (:class:`~repro_torch.models.layers.ParamTree`) whose
+names follow the JAX parameter tree's paths with each stacked group split
+into its layers (``groups.<i>.<g>.attn.wq`` holds ``groups/<i>/attn/wq[g]``),
+so :func:`~repro_torch.models.convert.params_from_jax` is a name map.
+
+Device rule: ``device=None`` means the CUDA card and raises without one;
+``device="cpu"`` runs every kernel's plain PyTorch version. The loss and
+training entry points wait for the training slice (``ROADMAP.md`` queue 1
+item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..compat import resolve_device
+from ..configs.base import ModelConfig
+from . import transformer as tf
+from .convert import load_tree
+from .layers import ParamTree, init_params
+
+Params = Any
+Cache = Any
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def default_positions(cfg: ModelConfig, batch: int, seq: int,
+                      offset: int = 0, device=None) -> torch.Tensor:
+    pos = torch.arange(offset, offset + seq, dtype=torch.int32,
+                       device=device)[None].expand(batch, seq)
+    if cfg.rope_mode == "mrope":
+        # text-stream default: t == h == w (the vision stub supplies real
+        # 3D positions for patch tokens)
+        return pos[None].expand(3, batch, seq)
+    return pos
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  z_weight: float = 0.0) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL in float32, with the reference's metrics (ties
+    count as correct) and optional z-loss."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    loss = (logz - gold).mean()
+    metrics = {
+        "nll": loss,
+        "accuracy": (gold >= logits.amax(dim=-1)).to(torch.float32).mean(),
+    }
+    if z_weight > 0:
+        zl = z_weight * logz.square().mean()
+        metrics["z_loss"] = zl
+        loss = loss + zl
+    return loss, metrics
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    cfg: ModelConfig
+    specs: dict
+    device: torch.device
+    init: Callable[[torch.Generator], Params]
+    skeleton: Callable[[], Params]
+    forward_fn: Callable[..., torch.Tensor]
+    prefill_fn: Callable[..., tuple[torch.Tensor, Cache]]
+    decode_fn: Callable[..., tuple[torch.Tensor, Cache]]
+    cache_init: Callable[..., Cache]
+
+
+def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
+    dev = resolve_device(device)
+    specs = tf.decoder_specs(cfg)      # raises for blocks not ported yet
+    pdtype = _dtype(cfg.param_dtype)
+    cdtype = _dtype(cfg.compute_dtype)
+
+    def skeleton() -> Params:
+        """The parameter modules, uninitialised, on the device."""
+        return ParamTree(tf.layer_specs(cfg), pdtype, dev)
+
+    def init(generator: torch.Generator) -> Params:
+        """Parameters drawn from ``generator`` (a generator of the
+        bundle's device) by the reference's init rule."""
+        return load_tree(skeleton(), init_params(specs, generator, pdtype, dev))
+
+    @torch.no_grad()
+    def forward(params: Params, batch: dict, *, want_cache: bool = False,
+                last_only: bool = False):
+        tokens = batch["tokens"].to(dev)
+        b, s = tokens.shape
+        positions = batch.get("positions")
+        positions = (default_positions(cfg, b, s, device=dev)
+                     if positions is None else positions.to(dev))
+        return tf.decoder_apply(params, tokens, positions, cfg,
+                                want_cache=want_cache, last_only=last_only)
+
+    def forward_fn(params: Params, batch: dict) -> torch.Tensor:
+        return forward(params, batch)[0]
+
+    def prefill_fn(params: Params, batch: dict):
+        """Process the prompt; returns (last-position logits, cache)."""
+        return forward(params, batch, want_cache=True, last_only=True)
+
+    @torch.no_grad()
+    def decode_fn(params: Params, token: torch.Tensor, position: torch.Tensor,
+                  cache: Cache, cache_len: int):
+        return tf.decode_step(params, token.to(dev), position.to(dev), cache,
+                              int(cache_len), cfg)
+
+    def cache_init(batch: int, capacity: int) -> Cache:
+        return tf.cache_init(cfg, batch, capacity, cdtype, dev)
+
+    return ModelBundle(
+        cfg=cfg, specs=specs, device=dev, init=init, skeleton=skeleton,
+        forward_fn=forward_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        cache_init=cache_init,
+    )

@@ -1,0 +1,267 @@
+"""Decoder stack (counterpart of ``repro/models/transformer.py``).
+
+Layers are ``group_count`` repetitions of ``cfg.block_pattern`` (gemma2:
+``("local_attn", "attn")``) plus a tail for non-divisible depths. The JAX
+package stacks each pattern position's parameters along a leading 'layers'
+axis and drives the stack with ``jax.lax.scan``; here the parameters are
+one module per layer (``groups.<i>.<g>`` is repetition ``g`` of pattern
+position ``i``) and a Python loop runs them in the same order: for each
+repetition, the pattern's positions in turn, then the tail.
+
+Caches mirror the structure: ``{"groups": {i: [entry per repetition]},
+"tail": {i: entry}}``, each attention entry ``{"self": {"k", "v"[,
+"k_scale", "v_scale"]}}`` of ``(B, capacity, Hkv, D)``.
+
+Ported block kinds: ``attn`` and ``local_attn`` with a dense FFN. ``rec``
+(RG-LRU), ``ssd`` (Mamba-2), MoE FFNs and the encoder raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import attention as attn
+from .layers import (
+    embed_logits, embed_lookup, embed_specs, mlp_apply, mlp_specs, rms_norm,
+    rms_norm_spec, softcap, stack_specs,
+)
+
+Params = Any
+Cache = Any
+
+_LATER = {
+    "rec": "the RG-LRU block (models/rglru.py with kernel K6) waits for "
+           "ROADMAP.md queue 1 item 6 and queue 2 K6",
+    "ssd": "the Mamba-2 SSD block (models/ssd.py with kernel K5) waits for "
+           "ROADMAP.md queue 1 item 6 and queue 2 K5",
+    "moe": "MoE FFNs (models/moe.py) wait for ROADMAP.md queue 1 item 6",
+    "encoder": "the encoder and cross attention (seamless) wait for "
+               "ROADMAP.md queue 1 item 6",
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"not ported yet: {_LATER[what]}")
+
+
+# --------------------------------------------------------------------------- specs
+
+
+def block_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("rec", "ssd"):
+        raise not_ported(kind)
+    if kind not in ("attn", "local_attn"):
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.is_moe:
+        raise not_ported("moe")
+    d = cfg.d_model
+    return {
+        "ln1": rms_norm_spec(d),
+        "attn": attn.attn_specs(cfg),
+        "ln2": rms_norm_spec(d),
+        "ffn": mlp_specs(d, cfg.d_ff, cfg.act),
+    }
+
+
+def decoder_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's parameter spec tree, stacked groups included."""
+    if cfg.encoder_layers > 0:
+        raise not_ported("encoder")
+    return {
+        "embed": embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings),
+        "final_ln": rms_norm_spec(cfg.d_model),
+        "groups": {
+            str(i): stack_specs(block_specs(cfg, kind), cfg.group_count)
+            for i, kind in enumerate(cfg.block_pattern)
+        },
+        "tail": {
+            str(i): block_specs(cfg, kind)
+            for i, kind in enumerate(cfg.tail_pattern)
+        },
+    }
+
+
+def layer_specs(cfg: ModelConfig) -> dict:
+    """:func:`decoder_specs` with each stacked group split into a list of
+    ``group_count`` per-layer spec trees (the port's module tree)."""
+    specs = decoder_specs(cfg)
+    specs["groups"] = {
+        str(i): [block_specs(cfg, kind) for _ in range(cfg.group_count)]
+        for i, kind in enumerate(cfg.block_pattern)
+    }
+    return specs
+
+
+def layers_in_order(params: Params, cfg: ModelConfig):
+    """``(kind, layer params, (section, i, g))`` in execution order: each
+    repetition of the pattern, then the tail (``g`` is None there)."""
+    for g in range(cfg.group_count):
+        for i, kind in enumerate(cfg.block_pattern):
+            yield kind, params["groups"][str(i)][g], ("groups", str(i), g)
+    for i, kind in enumerate(cfg.tail_pattern):
+        yield kind, params["tail"][str(i)], ("tail", str(i), None)
+
+
+def _entry(cache: Cache, where) -> dict:
+    section, i, g = where
+    return cache[section][i] if g is None else cache[section][i][g]
+
+
+# --------------------------------------------------------------------------- blocks
+
+
+def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, kind: str, *, causal: bool = True
+                    ) -> tuple[torch.Tensor, dict]:
+    """One block over a full sequence. Returns (x, cache_entry)."""
+    h, (k, v) = attn.attention_sequence(
+        params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), positions,
+        cfg, local=kind == "local_attn", causal=causal,
+    )
+    x = x + h
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = attn.quantize_kv(k)
+        vq, vs = attn.quantize_kv(v)
+        cache = {"self": {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}}
+    else:
+        cache = {"self": {"k": k, "v": v}}
+    h = mlp_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
+                  cfg.act)
+    return x + h, cache
+
+
+def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
+                     cache: dict, cache_len: int, cfg: ModelConfig, kind: str
+                     ) -> tuple[torch.Tensor, dict]:
+    """One block for one token (B, 1, D); writes its K/V into ``cache``."""
+    h, _ = attn.attention_step(
+        params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), position,
+        cache["self"], cache_len, cfg, local=kind == "local_attn",
+    )
+    x = x + h
+    h = mlp_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
+                  cfg.act)
+    return x + h, cache
+
+
+# --------------------------------------------------------------------------- decoder
+
+
+def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = embed_logits(params["embed"], x)
+    if cfg.final_logit_softcap > 0:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return logits
+
+
+def decoder_apply(
+    params: Params,
+    tokens: torch.Tensor,        # (B, S) int
+    positions: torch.Tensor,     # (B, S) or (3, B, S)
+    cfg: ModelConfig,
+    *,
+    want_cache: bool = False,
+    last_only: bool = False,
+) -> tuple[torch.Tensor, Optional[Cache]]:
+    """Returns (logits (B, S, V), cache-or-None). ``last_only`` applies the
+    final norm, head and softcap to the last position alone and returns
+    (B, 1, V): the same values as the full logits' last row, since each
+    position's norm and head are its own."""
+    x = embed_lookup(params["embed"], tokens, cfg.d_model)
+    cache: dict = {
+        "groups": {str(i): [] for i in range(len(cfg.block_pattern))},
+        "tail": {},
+    }
+    for kind, layer, (section, i, g) in layers_in_order(params, cfg):
+        x, entry = block_apply_seq(layer, x, positions, cfg, kind)
+        if not want_cache:
+            continue
+        if g is None:
+            cache[section][i] = entry
+        else:
+            cache[section][i].append(entry)
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, x, cfg), (cache if want_cache else None)
+
+
+def decode_step(
+    params: Params,
+    token: torch.Tensor,         # (B, 1) int
+    position: torch.Tensor,      # (B, 1) or (3, B, 1)
+    cache: Cache,
+    cache_len: int,              # valid rows incl. this token
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, Cache]:
+    """One token through all layers. Returns (logits (B, 1, V), cache),
+    the cache updated in place at row ``cache_len - 1``."""
+    x = embed_lookup(params["embed"], token, cfg.d_model)
+    for kind, layer, where in layers_in_order(params, cfg):
+        x, _ = block_apply_step(layer, x, position, _entry(cache, where),
+                                cache_len, cfg, kind)
+    return _head(params, x, cfg), cache
+
+
+# --------------------------------------------------------------------------- cache init / padding
+
+
+def _attn_cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
+                     device) -> dict:
+    shape = (batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        # per-(token, head) symmetric scales (see attention.quantize_kv)
+        scale = (batch, capacity, cfg.num_kv_heads, 1)
+        return {"self": {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
+            "v_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
+        }}
+    return {"self": {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }}
+
+
+def cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
+               device) -> Cache:
+    """Empty cache matching decode_step's expectations."""
+    for kind in cfg.block_pattern:
+        block_specs(cfg, kind)  # raises for the kinds not ported
+    return {
+        "groups": {
+            str(i): [_attn_cache_init(cfg, batch, capacity, dtype, device)
+                     for _ in range(cfg.group_count)]
+            for i in range(len(cfg.block_pattern))
+        },
+        "tail": {
+            str(i): _attn_cache_init(cfg, batch, capacity, dtype, device)
+            for i in range(len(cfg.tail_pattern))
+        },
+    }
+
+
+def pad_cache_to(cache: Cache, cfg: ModelConfig, capacity: int) -> Cache:
+    """Grow prefill K/V entries (length S) to ``capacity`` rows."""
+
+    def fix(entry: dict) -> dict:
+        kv = entry["self"]
+        pad_n = capacity - kv["k"].shape[1]
+        if pad_n <= 0:
+            return entry
+        return {**entry, "self": {
+            name: torch.cat([arr, arr.new_zeros(
+                (arr.shape[0], pad_n, *arr.shape[2:]))], dim=1)
+            for name, arr in kv.items()
+        }}
+
+    return {
+        "groups": {i: [fix(e) for e in entries]
+                   for i, entries in cache["groups"].items()},
+        "tail": {i: fix(e) for i, e in cache["tail"].items()},
+    }
