@@ -26,41 +26,69 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    and within a relative L2 band that a bf16-probability control must
    fall outside; its time there against its plain version's and, with
    softcap 0, against ``scaled_dot_product_attention``'s;
-6. the fleet path: ``fleet_scaling.json`` as a 1,000,000-peer flash crowd
+6. K5 (chunked SSD) on the card against its plain version, y and the
+   final state: the reference's three cases with and without an initial
+   state (also through the public ``ops.ssd_mixer``), a ragged sequence,
+   and the mamba2 serving shape (B 4, H 64, S 4600, P 64, N 128, chunk
+   64) with long-memory inputs in float32 and bfloat16; elementwise at
+   the reference's 1e-4 and within a relative-L2 band that a control
+   dropping the state entering each chunk must fall outside; its time
+   there against its plain version's;
+7. K6 (RG-LRU scan) on the card against its plain version, bit for bit:
+   the reference's four cases, a ragged sequence and width, and the
+   recurrentgemma serving shape (B 4, S 4608, W 2560) with long-memory
+   decays and a non-zero initial state; a control restarting every 256
+   steps must differ; its time there against its plain version's;
+8. the fleet path: ``fleet_scaling.json`` as a 1,000,000-peer flash crowd
    at ``dt = 16`` through ``ScenarioSpec.build("fleet").run()`` exactly as
    committed apart from ``n`` and ``dt`` (a file naming no backend runs the
    device tick), held to the float64 golden of
    ``BENCH_swarm_scaling.json``; K1's and K2's launch counts are read from
    this run alone;
-7. K2 (max-min water-filling) on the card against its plain version,
+9. K2 (max-min water-filling) on the card against its plain version,
    bit-exact (rates, rounds and each round's active-flow count), on flow
    tables captured from the fleet path and on small random topologies
    (also within 1e-3 of the float64 numpy water-fill);
-8. the checkpoint broadcast path: stage 2 of
-   ``python -m repro_torch.examples.checkpoint_broadcast`` on an 8 GiB
-   (2**33-byte) bundle made from a seed, through a one-rank NCCL group:
-   stripe, all-gather, K3 on the replica, ``verify_replicas``; K3's launch
-   count is read from this run alone. The replica must equal the payload,
-   its checksum must equal the stripe's and K3's plain version's, and a
-   bit flipped above index 2**32 must change it;
-9. the serving path: ``build_model`` of the full-width ``gemma2_2b``
-   (26 layers, 2.61B parameters, bfloat16, weights from a
-   ``torch.Generator`` seeded 13 on the card), then
-   ``ServeEngine.serve_queue`` over 8 requests of 4,608-token prompts in
-   4 slots, 16 greedy new tokens each: two prefills and 30 decode steps.
-   K4's launch count, read from this run alone, must be 2 x 26 = 52; a
-   second run must give the same tokens; every token must lie in the
-   vocabulary; the first batch's decode, replayed, must pick the served
-   tokens. Each batch's last-position logits through K4 must agree with
-   the same model through the plain attention; then, on the same weights
-   cast to float32, so must the first batch's, and each decode step's
-   logits with the served tokens fed back must agree with the forward
-   pass over the prompt and those tokens (cache lengths past the 4,096
-   window). Each agreement is a relative-L2 band; each float32 band must
-   leave a lower-precision control (bf16 probabilities, the int8 KV
-   cache) outside;
-10. one JSON line of per-kernel numbers, then the last line
+10. the checkpoint broadcast path: stage 2 of
+    ``python -m repro_torch.examples.checkpoint_broadcast`` on an 8 GiB
+    (2**33-byte) bundle made from a seed, through a one-rank NCCL group:
+    stripe, all-gather, K3 on the replica, ``verify_replicas``; K3's launch
+    count is read from this run alone. The replica must equal the payload,
+    its checksum must equal the stripe's and K3's plain version's, and a
+    bit flipped above index 2**32 must change it;
+11. the serving path: ``build_model`` of the full-width ``gemma2_2b``
+    (26 layers, 2.61B parameters, bfloat16, weights from a
+    ``torch.Generator`` seeded 13 on the card), then
+    ``ServeEngine.serve_queue`` over 8 requests of 4,608-token prompts in
+    4 slots, 16 greedy new tokens each: two prefills and 30 decode steps.
+    K4's launch count, read from this run alone, must be 2 x 26 = 52; a
+    second run must give the same tokens; every token must lie in the
+    vocabulary; the first batch's decode, replayed, must pick the served
+    tokens. Each batch's last-position logits through K4 must agree with
+    the same model through the plain attention; then, on the same weights
+    cast to float32, so must the first batch's, and each decode step's
+    logits with the served tokens fed back must agree with the forward
+    pass over the prompt and those tokens (cache lengths past the 4,096
+    window). Each agreement is a relative-L2 band; each float32 band must
+    leave a lower-precision control (bf16 probabilities, the int8 KV
+    cache) outside;
+12. the state serving paths, ``mamba2_1_3b`` (48 ssd layers, 4,600-token
+    prompts: the last SSD chunk ragged) and ``recurrentgemma_2b`` (18 rec
+    and 8 local-attention layers, 4,608-token prompts past the 2,048
+    window), at full width from seed 14 with the decay parameters redrawn
+    from the published init ranges, each through ``build_model`` and
+    ``ServeEngine.serve_queue`` as in phase 11: launches (K5 96; K6 36 and
+    K4 16), the same tokens twice, the replayed decode; on the weights
+    cast to float32, the prefill logits through the kernels against their
+    plain versions and the teacher-forced decode (the recurrent step after
+    K5's or K6's hand-off) against the forward pass, each within a band
+    that its controls (state dropped between chunks or blocks; state
+    zeroed or conv tail dropped at the hand-off) must fall outside;
+13. one JSON line of per-kernel numbers, then the last line
     ``{"ok": true, "device": {...}}``.
+
+The parameter count of every serving path is checked against the
+config's, block kind by block kind.
 
 Any failed check raises, so the script exits non-zero before the last
 line. Without CUDA, or outside a checkout, it exits non-zero and prints
@@ -96,6 +124,8 @@ SWARM_SOURCE = "src/repro_torch/kernels/swarm/csrc/swarm_kernels.cu"
 CHECKSUM_SOURCE = "src/repro_torch/kernels/checksum/csrc/checksum_kernels.cu"
 ATTENTION_SOURCE = (
     "src/repro_torch/kernels/attention/csrc/attention_kernels.cu")
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_kernels.cu"
+RGLRU_SOURCE = "src/repro_torch/kernels/rglru/csrc/rglru_kernels.cu"
 # the serving path: full-width gemma2_2b, 8 requests of 4,608 tokens in 4
 # slots, 16 greedy new tokens (4,608 > the 4,096 window of the local layers)
 SERVE_ARCH = "gemma2_2b"
@@ -118,6 +148,10 @@ K4_CASES = [
 # once, so they may land one unit in the last place apart, at most 2^-7 of
 # the value; 1e-5 absolute covers values near zero, where the two float32
 # sums' own difference (about 1e-6) exceeds a unit.
+# recurrentgemma's local-attention prefill (b, s, hq, hkv, d) and window:
+# 10 query heads over one key/value head, no softcap
+K4_RECURRENTGEMMA = (4, 4608, 10, 1, 256)
+K4_RECURRENTGEMMA_WINDOW = 2048
 K4_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # Relative-L2 bands, each set from H100 readings (PERF.md, serving: sound
 # run / lower-precision control) and, where the control stands apart, near
@@ -133,6 +167,65 @@ K4_REL_L2 = 3e-4
 LOGITS_BAND_F32 = 5e-5
 LOGITS_BAND_BF16 = 8.5e-3
 DECODE_BAND_F32 = 4e-5
+# K6: the reference's four cases (tests/test_kernels.py:44-53, b, s, w), a
+# sequence and width that are no multiple of the kernel's unroll (16) and
+# block (64), and the recurrentgemma serving shape with long-memory decays
+K6_CASES = [(2, 64, 32), (1, 300, 100), (3, 512, 256), (1, 16, 8)]
+K6_RAGGED = (2, 1237, 333)
+K6_SERVING = (4, 4608, 2560)
+K6_LONG_MEMORY = (0.99, 0.9999)
+K6_RESTART = 256    # the reference's time block (rglru/ops.py block_t)
+# K5: the reference's three cases (tests/test_kernels.py:56-68: b, h, s, p,
+# n, chunk), each with and without an initial state, a ragged sequence, and
+# the mamba2 serving shape (S 4600: the last chunk is ragged) with
+# long-memory inputs, dt in U(1e-3, 1e-2) and a in -U(0.1, 0.5), so that
+# exp(acum) stays near 1 across a chunk and the carried state dominates
+K5_CASES = [(c, h0) for c in [(2, 4, 64, 16, 16, 16), (1, 2, 130, 32, 64, 32),
+                              (2, 8, 256, 64, 128, 64)]
+            for h0 in (False, True)] + [((2, 8, 1000, 64, 128, 64), True)]
+K5_SERVING = (4, 64, 4600, 64, 128, 64)
+K5_DT_LONG = (1e-3, 1e-2)
+K5_A_LONG = (0.1, 0.5)
+# K5 against its plain version in relative L2, y and h_last alike: near
+# the geometric mean of the largest H100 reading (6.2e-7) and the smallest
+# no-carry control (1.8e-3, a short-memory h_last), PERF.md
+K5_REL_L2 = 3e-5
+# the kernel that each block kind launches once per prefill
+KERNEL_OF_KIND = {"attn": "flash_attention", "local_attn": "flash_attention",
+                  "ssd": "ssd_chunked", "rec": "rglru_scan"}
+# the state serving paths: full width, 8 requests in 4 slots, 16 greedy new
+# tokens (SERVE_* above), weights from seed 14 with the decays redrawn.
+# Per arch: the prompt's tokens; the depth (layers) of the float32
+# end-to-end checks, the float32 prefill-logits and decode bands there and
+# the attention decode faults (DECODE_FAULTS) that the decode band must
+# catch besides the state hand-off controls; the {block kind: (prefill
+# band, decode band)} of ``layerwise_check`` at full depth. mamba2's 4,600
+# tokens leave its last SSD chunk ragged; recurrentgemma's 4,608 pass its
+# 2,048 window. Each band sits near the geometric mean of an H100 reading
+# and its nearest control (PERF.md): mamba2 logits 6.3e-6 / 3.0e-4, decode
+# 9.4e-6 / 8.4e-4; layer by layer, ssd 1.3e-6 / 1.5e-4 and 1.7e-6 /
+# 6.7e-4, rec 7.4e-6 / 1.7e-2 and 1.0e-5 / 7.5e-3, local_attn 7.5e-8 /
+# 2.1e-4 and 3.8e-4 / 1.36. recurrentgemma is held end to end at its first
+# (rec, rec, local_attn) group and the (rec, rec) tail, 5 of its 26 layers:
+# logits 1.1e-7 / no-carry 0.31; decode 4.4e-4 at a near-tie (median
+# 2.3e-6) / conv tail dropped 0.29, state zeroed 0.64, window dropped 1.37.
+# With these weights its scores have a std of about 810 and each row's
+# largest probability rounds to 1 in float32 (``attention_sharpness``), so
+# each further local-attention layer multiplies a rounding difference by up
+# to 230 (5e-8 after the first reads 0.34 after the last; the decode reads
+# 8.5e-3 at 8 layers), and a window one key too wide or the new row unseen
+# leave the decode exactly as it was; the layer-by-layer check holds every
+# block at full depth
+STATE_SEED = 14
+STATE_SERVING = {
+    "mamba2_1_3b": dict(
+        prompt=4600, layers=48, logits_band=4e-5, decode_band=4e-5,
+        decode_faults=(), layer_bands={"ssd": (1.5e-5, 3e-5)}),
+    "recurrentgemma_2b": dict(
+        prompt=4608, layers=5, logits_band=2e-4, decode_band=1e-2,
+        decode_faults=("window dropped",),
+        layer_bands={"rec": (3e-4, 2.5e-4), "local_attn": (3e-6, 2e-3)}),
+}
 # the checkpoint bundle: 2**33 bytes, a bf16 checkpoint of ~4.3B parameters
 BUNDLE_BYTES = 1 << 33
 BUNDLE_SEED = 12
@@ -145,6 +238,14 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Log the wall seconds of the phase run inside."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
 
 
 # ------------------------------------------------------------------ timing
@@ -169,13 +270,14 @@ def median_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S
-          ) -> tuple[float, str]:
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S,
+          tensor_ops: float = 0.0) -> tuple[float, str]:
     """The least time in ms the card could take: the larger of the bytes
     over the memory rate and the operations over their peak (float32
-    unless ``ops_per_s`` says otherwise)."""
+    unless ``ops_per_s`` says otherwise), plus ``tensor_ops`` more at the
+    bf16 tensor-core rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / ops_per_s * 1e3
+    by_ops = (nops / ops_per_s + tensor_ops / BF16_TENSOR_OPS_PER_S) * 1e3
     by = "bytes" if by_bytes >= by_ops else "operations"
     return max(by_bytes, by_ops), by
 
@@ -643,12 +745,10 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def attention_bf16_probs(q, k, v, *, causal=True, window=0, softcap=0.0,
-                         skv_valid=None):
-    """The lower-precision control for K4's bands: the plain version with
-    its probabilities rounded to bfloat16 before P·V, as a kernel that
-    feeds bf16 P to the tensor cores computes. Same contract and layout as
-    ``attention_bhsd_ref``."""
+def attention_scores(q, k, *, causal=True, window=0, softcap=0.0,
+                     skv_valid=None):
+    """The plain version's scaled (and soft-capped) float32 scores (B, Hkv,
+    Hq / Hkv, Sq, Skv) and its mask of live (q, k) pairs (Sq, Skv)."""
     import math
 
     import torch
@@ -666,6 +766,20 @@ def attention_bf16_probs(q, k, v, *, causal=True, window=0, softcap=0.0,
         mask = mask & (qi >= ki)
     if window > 0:
         mask = mask & (qi - ki < window)
+    return s, mask
+
+
+def attention_bf16_probs(q, k, v, *, causal=True, window=0, softcap=0.0,
+                         skv_valid=None):
+    """The lower-precision control for K4's bands: the plain version with
+    its probabilities rounded to bfloat16 before P·V, as a kernel that
+    feeds bf16 P to the tensor cores computes. Same contract and layout as
+    ``attention_bhsd_ref``."""
+    import torch
+
+    b, hq, sq, d = q.shape
+    s, mask = attention_scores(q, k, causal=causal, window=window,
+                               softcap=softcap, skv_valid=skv_valid)
     p = torch.softmax(s.masked_fill(~mask, -2e38), dim=-1)
     p = p.to(torch.bfloat16).to(torch.float32)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
@@ -685,6 +799,17 @@ def sequence_attention(fn):
         yield
     finally:
         ops.flash_attention_cuda = kernel
+
+
+def k4_bound(q, k, *, window):
+    """K4's bound at a causal prefill of bf16 q (B, Hq, S, d) and k/v (B,
+    Hkv, S, d): q, k, v read once and the output written once; 4·d
+    operations per live (q, k) pair and query head (q·k and p·v), at the
+    bf16 tensor-core rate. Returns (ms, bound_by, operations)."""
+    b, hq, s, d = q.shape
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4 * b * hq * d * live_pairs(s, s, True, window)
+    return (*bound(nbytes, flops, BF16_TENSOR_OPS_PER_S), flops)
 
 
 def check_k4(k4, dev):
@@ -747,13 +872,20 @@ def check_k4(k4, dev):
                     k4.attention_ref(qs, ks, vs, **kw))
         del q, k, v
 
-    # the serving prefill shape, elementwise and in relative L2 against
-    # K4_REL_L2, which must tell the bf16-probability control apart
+    # the serving prefill shapes, elementwise and in relative L2 against
+    # K4_REL_L2, which must tell the bf16-probability control apart:
+    # gemma2's global and local layers, and recurrentgemma's local layers,
+    # as each path serves them (bf16) and in float32
     b, s, hq, hkv, d = 4, SERVE_PROMPT, 8, 4, 256
-    for window in (0, 4096):
-        q, k, v = qkv(b, s, s, hq, hkv, d, bf16)
-        kw = dict(causal=True, window=window, softcap=50.0)
-        what = f"prefill shape {(b, s, hq, hkv, d)} bfloat16 window {window}"
+    prefill_cases = [((b, s, hq, hkv, d), bf16, window, 50.0)
+                     for window in (0, 4096)]
+    prefill_cases += [(K4_RECURRENTGEMMA, dtype, K4_RECURRENTGEMMA_WINDOW,
+                       0.0) for dtype in (f32, bf16)]
+    for shape, dtype, window, cap in prefill_cases:
+        q, k, v = qkv(*shape[:2], *shape[1:], dtype)
+        kw = dict(causal=True, window=window, softcap=cap)
+        what = (f"prefill shape {shape} {str(dtype)[6:]} window {window} "
+                f"softcap {cap}")
         got = k4.flash_attention_cuda(q, k, v, **kw)
         want = k4.attention_bhsd_ref(q, k, v, **kw)
         compare(what, got, want)
@@ -781,18 +913,37 @@ def check_k4(k4, dev):
         q, k, v, causal=True, window=0, softcap=0.0), reps=10)
     library_ms = median_ms(lambda: F.scaled_dot_product_attention(
         q, ke, ve, is_causal=True), reps=10)
-    pairs = live_pairs(s, s, True, 0)
-    # q, k, v read once and the output written once; 4·d operations per
-    # live (q, k) pair and query head (q·k and p·v), at the bf16
-    # tensor-core rate
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flops = 4 * b * hq * d * pairs
-    bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
+    bound_ms, bound_by, flops = k4_bound(q, k, window=0)
     log(f"K4 at the prefill shape: {ms:.3f} ms (softcap 0: {nocap_ms:.3f} "
         f"ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
         f"(softcap 0) {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}; {flops / 1e9:.1f} GFLOP, "
         f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
+    del q, k, v, ke, ve
+
+    # timing at recurrentgemma's local-attention prefill, as served; the
+    # library call takes the window as a boolean mask
+    rb, rs, rhq, rhkv, rd = K4_RECURRENTGEMMA
+    window = K4_RECURRENTGEMMA_WINDOW
+    q, k, v = qkv(rb, rs, rs, rhq, rhkv, rd, bf16)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    rg_ms = median_ms(lambda: k4.flash_attention_cuda(q, k, v, **kw),
+                      reps=10)
+    rg_plain_ms = median_ms(lambda: k4.attention_bhsd_ref(q, k, v, **kw),
+                            reps=3)
+    ke, ve = (t.repeat_interleave(rhq // rhkv, dim=1) for t in (k, v))
+    qi = torch.arange(rs, device=dev)[:, None]
+    ki = torch.arange(rs, device=dev)[None, :]
+    mask = (qi >= ki) & (qi - ki < window)
+    rg_library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask), reps=10)
+    rg_bound_ms, rg_bound_by, rg_flops = k4_bound(q, k, window=window)
+    log(f"K4 at recurrentgemma's prefill shape {K4_RECURRENTGEMMA} window "
+        f"{window}: {rg_ms:.3f} ms, plain {rg_plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention (window as a mask) "
+        f"{rg_library_ms:.3f} ms, bound {rg_bound_ms:.3f} ms ({rg_bound_by}; "
+        f"{rg_flops / 1e9:.1f} GFLOP)")
+    del q, k, v, ke, ve, mask
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -811,16 +962,286 @@ def check_k4(k4, dev):
         "dtype": "bfloat16",
         "softcap": 50.0,
         "gflop": flops / 1e9,
+        "recurrentgemma": {
+            "shape": list(K4_RECURRENTGEMMA), "window": window,
+            "softcap": 0.0, "dtype": "bfloat16", "ms": rg_ms,
+            "plain_ms": rg_plain_ms, "bound_ms": rg_bound_ms,
+            "bound_by": rg_bound_by, "library_ms": rg_library_ms,
+            "library": "scaled_dot_product_attention(attn_mask=window)",
+            "gflop": rg_flops / 1e9},
+    }
+
+
+# ------------------------------------------------------------------ K6
+
+
+def rglru_restarting(k6, a, b, h0):
+    """The control for K6: its plain version restarted from zero every
+    ``K6_RESTART`` steps after the first block (a kernel that drops the
+    carry between the reference's time blocks)."""
+    import torch
+
+    every = K6_RESTART
+    return torch.cat([
+        k6.rglru_scan_ref(a[:, t:t + every], b[:, t:t + every],
+                          h0 if t == 0 else None)
+        for t in range(0, a.shape[1], every)], dim=1)
+
+
+def check_k6(k6, dev):
+    """K6 vs its plain version on the card, bit for bit: the reference's
+    four cases, a ragged sequence and width, and the serving shape with
+    long-memory decays and a non-zero h0; returns the kernel's record."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+
+    def inputs(b, s, w, lo, hi):
+        a = torch.rand((b, s, w), generator=gen, device=dev) * (hi - lo) + lo
+        x = torch.randn((b, s, w), generator=gen, device=dev)
+        h0 = torch.randn((b, w), generator=gen, device=dev)
+        return a, x, h0
+
+    cases = [(c, 0.3, 0.999) for c in K6_CASES]
+    cases.append((K6_RAGGED, 0.3, 0.999))
+    cases.append((K6_SERVING, *K6_LONG_MEMORY))
+    for (b, s, w), lo, hi in cases:
+        a, x, h0 = inputs(b, s, w, lo, hi)
+        got = k6.rglru_scan_cuda(a, x, h0)
+        want = k6.rglru_scan_ref(a, x, h0)
+        torch.cuda.synchronize()
+        what = f"(B, S, W) = {(b, s, w)}, a in U({lo}, {hi})"
+        if not torch.equal(got, want):
+            fail(f"K6 {what}: {int((got != want).sum())} values differ from "
+                 f"the plain version (max |diff| "
+                 f"{float((got - want).abs().max())})")
+        public = k6.rglru_scan(a, x, h0)
+        if not torch.equal(public, want):
+            fail(f"K6 {what}: ops.rglru_scan differs from the plain version")
+        note = ""
+        if s > K6_RESTART:
+            control = rglru_restarting(k6, a, x, h0)
+            if torch.equal(control, want):
+                fail(f"K6 {what}: the restarting control equals the plain "
+                     "version")
+            note = (f"; the control restarting every {K6_RESTART} steps "
+                    f"reads max |diff| "
+                    f"{float((control - want).abs().max()):.4g}, relative "
+                    f"L2 {rel_l2(control, want):.4g}")
+            del control
+        log(f"K6 {what}: bit-exact (also via ops.rglru_scan){note}")
+        del a, x, h0, got, want, public
+
+    b, s, w = K6_SERVING
+    a, x, h0 = inputs(b, s, w, *K6_LONG_MEMORY)
+    ms = median_ms(lambda: k6.rglru_scan_cuda(a, x, h0), reps=20)
+    plain_ms = median_ms(lambda: k6.rglru_scan_ref(a, x, h0), reps=3)
+    # a and b read once, h0 read once, h written once; a multiply and an
+    # add an element
+    nbytes = 4 * (3 * a.numel() + h0.numel())
+    bound_ms, bound_by = bound(nbytes, 2 * a.numel())
+    log(f"K6 at the serving shape {(b, s, w)}: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{nbytes / ms / 1e9:.1f} GB/s achieved)")
+    return {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": RGLRU_SOURCE,
+        "replaces": "src/repro/kernels/rglru/kernel.py:25",
+        "max_abs_err": 0.0,
+        "matched": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [b, s, w],
+        "dtype": "float32",
+    }
+
+
+# ------------------------------------------------------------------ K5
+
+
+def ssd_without_carry(k5, x, dt, a_neg, bmat, cmat, chunk):
+    """The control for K5: its plain version with the state entering each
+    chunk dropped (every chunk starts from zeros); the model's layout,
+    returns (y, h_last)."""
+    import torch
+
+    ys, h = [], None
+    for t in range(0, x.shape[1], chunk):
+        y, h = k5.ssd_chunked_ref(x[:, t:t + chunk], dt[:, t:t + chunk],
+                                  a_neg, bmat[:, t:t + chunk],
+                                  cmat[:, t:t + chunk], chunk)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def ssd_flops(b, h, s, p, n, chunk) -> tuple[int, int]:
+    """The chunked form's products on the live rows of each chunk of q
+    rows, the causal triangle (i >= j) alone where it is one: (C Bᵀ, q(q +
+    1) N; the rest: the scores times x·dt, q(q + 1) P, and C h_prevᵀ and the
+    state update, 2 q P N each)."""
+    cb = rest = 0
+    for t in range(0, s, chunk):
+        q = min(chunk, s - t)
+        cb += q * (q + 1) * n
+        rest += q * (q + 1) * p + 4 * q * p * n
+    return b * h * cb, b * h * rest
+
+
+def check_k5(k5, dev):
+    """K5 vs its plain version on the card, y and h_last: the reference's
+    three cases (also through the public ``ops.ssd_mixer``), a ragged
+    sequence with an initial state, and the mamba2 serving shape with
+    long-memory inputs in float32 and bfloat16. Each comparison is
+    elementwise (the reference's 1e-4) and in relative L2 against
+    ``K5_REL_L2``, which the no-carry control must fall outside; returns the
+    kernel's record."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    f32 = torch.float32
+    worst = 0.0
+    readings = []
+
+    def inputs(b, h, s, p, n, dt_range, a_range, dtype, with_h0):
+        def u(shape, lo, hi):
+            r = torch.rand(shape, generator=gen, device=dev)
+            return r * (hi - lo) + lo
+
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        dt = u((b, s, h), *dt_range)
+        a_neg = -u((h,), *a_range)
+        bm, cm = (torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        h0 = (torch.randn((b, h, p, n), generator=gen, device=dev)
+              if with_h0 else None)
+        return x, dt, a_neg, bm, cm, h0
+
+    def compare(what, got, want, control):
+        nonlocal worst
+        torch.cuda.synchronize()
+        for part, g, w, c in zip(("y", "h_last"), got, want, control):
+            err = float((g - w).abs().max())
+            bad = ~torch.isclose(g, w, atol=1e-4, rtol=1e-4)
+            if not torch.isfinite(g).all() or bool(bad.any()):
+                fail(f"K5 {what} {part}: {int(bad.sum())} values outside "
+                     f"1e-4 of the plain version (max |diff| {err})")
+            rel, ctrl = rel_l2(g, w), rel_l2(c, w)
+            readings.append((rel, ctrl))
+            worst = max(worst, err)
+            log(f"K5 {what} {part}: max |diff| {err:.3g} within 1e-4; "
+                f"relative L2 {rel:.4g} (band {K5_REL_L2:.4g}); the no-carry "
+                f"control reads {ctrl:.4g}")
+            if rel > K5_REL_L2:
+                fail(f"K5 {what} {part}: relative L2 {rel} above {K5_REL_L2}")
+            if ctrl <= K5_REL_L2:
+                fail(f"K5 {what} {part}: the band {K5_REL_L2} does not tell "
+                     f"the no-carry control ({ctrl}) from the kernel")
+
+    for (b, h, s, p, n, q), with_h0 in K5_CASES:
+        x, dt, a_neg, bm, cm, h0 = inputs(b, h, s, p, n, (0.01, 0.2),
+                                          (0.5, 2.0), f32, with_h0)
+        what = (f"(B, H, S, P, N) = {(b, h, s, p, n)} chunk {q} float32 "
+                f"h0={with_h0}")
+        got = k5.ssd_chunked_cuda(x.transpose(1, 2), dt.transpose(1, 2),
+                                  a_neg, bm, cm, chunk=q, h0=h0)
+        want = k5.ssd_chunked_ref(x, dt, a_neg, bm, cm, q, h0)
+        control = ssd_without_carry(k5, x, dt, a_neg, bm, cm, q)
+        compare(what, (got[0].transpose(1, 2), got[1]), want, control)
+        if not with_h0:
+            xb, dtb = x.transpose(1, 2).contiguous(), dt.transpose(1, 2)
+            mixed = k5.ssd_mixer(xb, dtb.contiguous(), a_neg, bm, cm, chunk=q)
+            if not torch.equal(mixed, got[0]):
+                fail(f"K5 {what}: ops.ssd_mixer differs from the kernel")
+        del x, dt, bm, cm, h0, got, want, control
+
+    b, h, s, p, n, q = K5_SERVING
+    for dtype, with_h0 in ((f32, True), (torch.bfloat16, False)):
+        x, dt, a_neg, bm, cm, h0 = inputs(b, h, s, p, n, K5_DT_LONG,
+                                          K5_A_LONG, dtype, with_h0)
+        what = (f"serving shape {(b, h, s, p, n)} chunk {q} "
+                f"{str(dtype)[6:]} h0={with_h0}, long memory")
+        got = k5.ssd_chunked_cuda(x.transpose(1, 2), dt.transpose(1, 2),
+                                  a_neg, bm, cm, chunk=q, h0=h0)
+        want = k5.ssd_chunked_ref(x, dt, a_neg, bm, cm, q, h0)
+        control = ssd_without_carry(k5, x, dt, a_neg, bm, cm, q)
+        compare(what, (got[0].transpose(1, 2), got[1]), want, control)
+        del got, want, control
+
+    # timing at the serving shape in bfloat16, as the model hands it over:
+    # heads ahead of the sequence by strides, no h0
+    xs, dts = x.transpose(1, 2), dt.transpose(1, 2)
+    ms = median_ms(lambda: k5.ssd_chunked_cuda(xs, dts, a_neg, bm, cm,
+                                               chunk=q), reps=10)
+    plain_ms = median_ms(lambda: k5.ssd_chunked_ref(x, dt, a_neg, bm, cm, q),
+                         reps=3)
+    cb_flops, rest_flops = ssd_flops(b, h, s, p, n, q)
+    flops = cb_flops + rest_flops
+    # x, B, C (bf16) and dt, a (float32) read once; y and h_last (float32)
+    # written once. C Bᵀ multiplies bf16 operands, whose products the bf16
+    # tensor cores form exactly (float32 sums): priced at their rate; the
+    # other products take a float32 operand (scores, x·dt, the state), at
+    # the float32 rate (TF32 would break the 1e-4 contract)
+    nbytes = (2 * (x.numel() + bm.numel() + cm.numel())
+              + 4 * (dt.numel() + a_neg.numel())
+              + 4 * (x.numel() + b * h * p * n))
+    bound_ms, bound_by = bound(nbytes, rest_flops, tensor_ops=cb_flops)
+    log(f"K5 at the serving shape: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s achieved)")
+    return {
+        "name": "ssd_chunked",
+        "route": "cuda",
+        "source": SSD_SOURCE,
+        "replaces": "src/repro/kernels/ssd/kernel.py:30",
+        "max_abs_err": worst,
+        "matched": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [b, h, s, p, n],
+        "chunk": q,
+        "dtype": "bfloat16 x, B, C; float32 dt",
+        "gflop": flops / 1e9,
+        "gflop_bf16_tensor": cb_flops / 1e9,
+        "rel_l2_max": max(r for r, _ in readings),
+        "control_rel_l2_min": min(c for _, c in readings),
     }
 
 
 # ------------------------------------------------------------------ serving
 
 
-def replay_decode(bundle, params, prompts, tokens):
+def layer_kinds(cfg) -> list[str]:
+    """Every layer's block kind, in execution order."""
+    return list(cfg.block_pattern) * cfg.group_count + list(cfg.tail_pattern)
+
+
+def uncounted_params(cfg) -> int:
+    """The parameters that ``ModelConfig.param_count`` leaves out: the norm
+    gains (one d_model vector before the head, one before each block's
+    mixer and one before its FFN, which an ssd block lacks) and, in an ssd
+    block, ``d_skip`` and the inner norm's gain (it counts two of the three
+    per-head vectors)."""
+    total = cfg.d_model
+    for kind in layer_kinds(cfg):
+        if kind == "ssd":
+            total += cfg.d_model + cfg.ssm_heads + cfg.ssm_d_inner
+        else:
+            total += 2 * cfg.d_model
+    return total
+
+
+def replay_decode(bundle, params, prompts, tokens, handoff=None):
     """The engine's decode of one batch again, fed its own tokens:
-    ``prompts`` (B, S) and ``tokens`` (B, n) as served. Returns the decode
-    steps' logits (B, n - 1, V) in float32."""
+    ``prompts`` (B, S) and ``tokens`` (B, n) as served; ``handoff``, if
+    given, is applied to each state entry of the prefill's cache before the
+    first step. Returns the decode steps' logits (B, n - 1, V) in float32."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -831,6 +1252,12 @@ def replay_decode(bundle, params, prompts, tokens):
     n = tokens.shape[1]
     _, cache = bundle.prefill_fn(params, {"tokens": prompts})
     cache = tf.pad_cache_to(cache, cfg, s + n)
+    if handoff is not None:
+        entries = [e for section in cache.values() for e in section.values()]
+        for entry in entries:
+            for e in (entry if isinstance(entry, list) else [entry]):
+                if "self" not in e:
+                    handoff(e)
     steps = []
     for i in range(n - 1):
         pos = default_positions(cfg, b, 1, offset=s + i, device=dev)
@@ -840,42 +1267,21 @@ def replay_decode(bundle, params, prompts, tokens):
     return torch.stack(steps, dim=1)
 
 
-def run_serving_path(k4, device=None):
-    """Full-width gemma2_2b through ``build_model`` and
-    ``ServeEngine.serve_queue`` on ``device`` (None = the CUDA card), with
-    its checks; returns the path's numbers."""
+def serve_and_check(bundle, params, reqs, counters):
+    """``reqs`` through ``ServeEngine.serve_queue`` in ``SERVE_SLOTS``
+    slots, ``SERVE_NEW`` greedy tokens each, every prefill and decode step
+    timed. Each kernel counter of ``counters`` (name -> wrapper) is set to 0
+    before the run and read after it, and must equal one launch per layer
+    of its block kinds per prefill. Then: the call counts, tokens in the
+    vocabulary, the same tokens from a second run, and the first batch's
+    decode, replayed, picking the served tokens. Returns the path's numbers
+    and the first batch's (prompts, served tokens) on the card."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = get_config(SERVE_ARCH)
-    total, _ = cfg.param_count()
-    bundle = build_model(cfg, device)
-    dev = bundle.device
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = bundle.init(torch.Generator(device=dev).manual_seed(SERVE_SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in params.parameters())
-    # the config's count leaves out the norm gains, one d_model vector
-    # before each block's attention and FFN and one before the head
-    if n_params != total + (2 * cfg.num_layers + 1) * cfg.d_model:
-        fail(f"{n_params} parameters, the config counts {total} besides "
-             "the norm gains")
-    log(f"serving path: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.resolved_head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} window={cfg.window}, "
-        f"{n_params} parameters ({cfg.param_dtype}) from seed {SERVE_SEED} "
-        f"in {init_s:.2f}s")
-
-    rng = np.random.default_rng(SERVE_SEED)
-    reqs = list(rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
-                .astype(np.int32))
+    cfg, dev = bundle.cfg, bundle.device
     calls = {"prefill": [], "decode": []}
 
     def timed(name, fn):
@@ -893,39 +1299,44 @@ def run_serving_path(k4, device=None):
         decode_fn=timed("decode", bundle.decode_fn))
     engine = ServeEngine(timed_bundle, params,
                          ServeConfig(max_new_tokens=SERVE_NEW))
-    k4.flash_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     outs = engine.serve_queue(reqs, slots=SERVE_SLOTS)
     wall = time.perf_counter() - t0
-    launches = k4.flash_attention_cuda.launches
+    launches = {name: w.launches for name, w in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     seconds = {name: list(times) for name, times in calls.items()}
-    prefills = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    prefills = -(-len(reqs) // SERVE_SLOTS)
     steps = prefills * (SERVE_NEW - 1)
     tokens = np.stack(outs)
-    log(f"serving path: {SERVE_REQUESTS} requests x {SERVE_PROMPT} prompt "
-        f"tokens, {SERVE_SLOTS} slots, {SERVE_NEW} new tokens: wall "
+    kinds = layer_kinds(cfg)
+    want = {name: prefills * sum(KERNEL_OF_KIND.get(k) == name for k in kinds)
+            for name in counters}
+    log(f"serving path {cfg.name}: {len(reqs)} requests x {len(reqs[0])} "
+        f"prompt tokens, {SERVE_SLOTS} slots, {SERVE_NEW} new tokens: wall "
         f"{wall:.2f}s, prefill {sum(seconds['prefill']):.3f}s over "
         f"{len(seconds['prefill'])} calls, decode "
         f"{sum(seconds['decode']):.3f}s over {len(seconds['decode'])} steps, "
-        f"{tokens.size / wall:.1f} new tokens/s, K4 launches {launches}, "
-        f"peak device memory {peak / 2**30:.2f} GiB")
-    want = prefills * cfg.num_layers
+        f"{tokens.size / wall:.1f} new tokens/s, launches {launches}, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
     if launches != want:
-        fail(f"K4 launched {launches} times on the serving path, not "
-             f"{prefills} prefills x {cfg.num_layers} layers = {want}")
+        fail(f"{cfg.name}: kernel launches {launches}, not {want} "
+             f"({prefills} prefills of {len(kinds)} layers {kinds})")
     if (len(seconds["prefill"]), len(seconds["decode"])) != (prefills, steps):
         fail(f"{len(seconds['prefill'])} prefills and "
              f"{len(seconds['decode'])} decode steps, not {prefills}, {steps}")
-    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or not (
+    if tokens.shape != (len(reqs), SERVE_NEW) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         fail(f"tokens of shape {tokens.shape} outside [0, {cfg.vocab_size})")
     again = np.stack(engine.serve_queue(reqs, slots=SERVE_SLOTS))
     if not np.array_equal(tokens, again):
-        fail(f"a second serve_queue gave other tokens "
+        fail(f"{cfg.name}: a second serve_queue gave other tokens "
              f"({int((tokens != again).sum())} differ)")
-    log(f"serving path: a second run gave the same {tokens.size} tokens; "
-        f"first request's: {tokens[0].tolist()}")
+    log(f"serving path {cfg.name}: a second run gave the same {tokens.size} "
+        f"tokens; first request's: {tokens[0].tolist()}")
 
     # The served tokens again: the first batch's decode replayed with them
     # must pick them again.
@@ -933,71 +1344,125 @@ def run_serving_path(k4, device=None):
     served = torch.as_tensor(tokens[:SERVE_SLOTS], device=dev)
     picks = replay_decode(bundle, params, prompts, served).argmax(-1)
     if not torch.equal(picks.to(served.dtype), served[:, 1:]):
-        fail("the replayed decode picked other tokens than the engine")
-    log("serving path: the first batch's decode, replayed with the served "
-        "tokens, picks them again")
+        fail(f"{cfg.name}: the replayed decode picked other tokens than the "
+             "engine")
+    log(f"serving path {cfg.name}: the first batch's decode, replayed with "
+        "the served tokens, picks them again")
+    return {
+        "arch": cfg.name, "wall_s": wall, "prefill_s": seconds["prefill"],
+        "decode_s": sum(seconds["decode"]),
+        "decode_step_ms": 1e3 * statistics.median(seconds["decode"]),
+        "new_tokens_per_s": tokens.size / wall, "launches": launches,
+        "peak_gib": peak / 2**30,
+    }, prompts, served
+
+
+def build_seeded(arch, seed, device=None):
+    """``build_model`` of the full-width ``arch`` and its parameters from a
+    ``torch.Generator`` seeded ``seed`` on the card, by the reference's
+    init rule; checks the parameter count against the config's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    bundle = build_model(cfg, device)
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = bundle.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    total, _ = cfg.param_count()
+    if n_params != total + uncounted_params(cfg):
+        fail(f"{n_params} parameters, the config counts {total} besides "
+             f"{uncounted_params(cfg)} it leaves out")
+    log(f"serving path {cfg.name}: {cfg.num_layers} layers "
+        f"{layer_kinds(cfg)[:4]}... d={cfg.d_model} vocab={cfg.vocab_size}, "
+        f"{n_params} parameters ({cfg.param_dtype}) from seed {seed} in "
+        f"{init_s:.2f}s")
+    return bundle, params, gen, {"params": n_params, "init_s": init_s}
+
+
+def run_serving_path(kernels, counters, device=None):
+    """Full-width gemma2_2b through ``build_model`` and
+    ``ServeEngine.serve_queue`` on ``device`` (None = the CUDA card), with
+    its checks; returns the path's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+
+    bundle, params, _, built = build_seeded(SERVE_ARCH, SERVE_SEED, device)
+    cfg, dev = bundle.cfg, bundle.device
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = list(rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+                .astype(np.int32))
+    numbers, prompts, served = serve_and_check(bundle, params, reqs, counters)
 
     # Logits against plain references, in bfloat16 as served, then in
     # float32 (the same weights cast), where the rounding floor is low
     # enough for a band to tell a lower-precision control apart.
     batches = [torch.as_tensor(np.stack(reqs[i:i + SERVE_SLOTS]), device=dev)
                for i in range(0, SERVE_REQUESTS, SERVE_SLOTS)]
-    bf16_logits = prefill_logits_check(bundle, params, batches, k4,
-                                       LOGITS_BAND_BF16, separates=False)
+    bf16_probs = ("bf16-probability control",
+                  lambda: sequence_attention(attention_bf16_probs))
+    bf16_logits = prefill_logits_check(bundle, params, batches, kernels,
+                                       bf16_probs, LOGITS_BAND_BF16,
+                                       separates=False)
     params = params.to(torch.float32)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     bundle32 = build_model(cfg32, dev)
-    f32_logits = prefill_logits_check(bundle32, params, batches[:1], k4,
-                                      LOGITS_BAND_F32, separates=True)
+    f32_logits = prefill_logits_check(bundle32, params, batches[:1], kernels,
+                                      bf16_probs, LOGITS_BAND_F32)
+    int8 = build_model(dataclasses.replace(cfg32, kv_cache_dtype="int8"), dev)
     decode = teacher_forced_check(
-        bundle32, build_model(dataclasses.replace(cfg32, kv_cache_dtype="int8"),
-                              dev),
-        params, prompts, served, k4)
-    return {
-        "arch": cfg.name, "params": n_params, "init_s": init_s,
-        "wall_s": wall, "prefill_s": seconds["prefill"],
-        "decode_s": sum(seconds["decode"]),
-        "decode_step_ms": 1e3 * statistics.median(seconds["decode"]),
-        "new_tokens_per_s": tokens.size / wall, "k4_launches": launches,
-        "peak_gib": peak / 2**30, "prefill_logits_bf16": bf16_logits,
-        "prefill_logits_f32": f32_logits, "decode_f32": decode,
-    }
+        bundle32, params, prompts, served, kernels, DECODE_BAND_F32,
+        {"int8 KV cache": (int8,), **{
+            name: (bundle32, None, lambda fault=fault: decode_fault(fault))
+            for name, fault in DECODE_FAULTS.items()}})
+    return {**numbers, **built, "prefill_logits_bf16": bf16_logits,
+            "prefill_logits_f32": f32_logits, "decode_f32": decode}
 
 
-def prefill_logits_check(bundle, params, batches, k4, band, separates):
-    """Each batch's last-position prefill logits through K4 against the
-    same model through the plain attention (sound), beside the
-    bf16-probability attention (the lower-precision control). Fails when a
-    sound reading passes ``band`` or, where the band ``separates``, when the
-    control does not."""
+def prefill_logits_check(bundle, params, batches, kernels, control, band,
+                         separates=True):
+    """Each batch's last-position prefill logits through the kernels
+    against the same model through their plain versions (sound), beside
+    ``control`` = (name, context factory), the same model under a
+    lower-precision or state-dropping control. Fails when a sound reading
+    passes ``band`` or, where the band ``separates``, when the control does
+    not."""
     import torch
 
-    what = f"{bundle.cfg.param_dtype} prefill logits"
-    sound, control = [], []
+    name, faulty = control
+    what = (f"{bundle.cfg.name} {bundle.cfg.param_dtype} "
+            f"({bundle.cfg.num_layers} layers) prefill logits")
+    sound, controls = [], []
     for batch in batches:
         batch = {"tokens": batch}
         got = bundle.prefill_fn(params, batch)[0]
-        with sequence_attention(k4.attention_bhsd_ref):
+        with plain_kernels(*kernels):
             plain = bundle.prefill_fn(params, batch)[0]
-        with sequence_attention(attention_bf16_probs):
+        with faulty():
             low = bundle.prefill_fn(params, batch)[0]
         if not torch.isfinite(got).all():
             fail(f"non-finite {what}")
         sound.append(rel_l2(got, plain))
-        control.append(rel_l2(low, plain))
+        controls.append(rel_l2(low, plain))
         agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
-        log(f"serving path: {what} through K4 vs the plain attention: "
-            f"relative L2 {sound[-1]:.4g} (band {band:.4g}), argmax "
-            f"agreement {agree:.2f}; the bf16-probability control reads "
-            f"{control[-1]:.4g}")
+        log(f"serving path: {what} through the kernels vs their plain "
+            f"versions: relative L2 {sound[-1]:.4g} (band {band:.4g}), argmax "
+            f"agreement {agree:.2f}; the {name} reads {controls[-1]:.4g}")
     if max(sound) > band:
-        fail(f"{what} through K4 differ from the plain attention's by "
-             f"{max(sound)} relative (band {band})")
-    if separates and min(control) <= band:
-        fail(f"{what}: the band {band} does not tell the bf16-probability "
-             f"control ({min(control)}) from the plain attention")
-    return {"rel_l2": sound, "control_rel_l2": control}
+        fail(f"{what} through the kernels differ from the plain versions' "
+             f"by {max(sound)} relative (band {band})")
+    if separates and min(controls) <= band:
+        fail(f"{what}: the band {band} does not tell the {name} "
+             f"({min(controls)}) from the plain versions")
+    return {"rel_l2": sound, "control_rel_l2": controls}
 
 
 # faults of the decode path that the float32 teacher-forced band must
@@ -1030,50 +1495,355 @@ def decode_fault(fault):
         attention.decode_attention = plain
 
 
-def teacher_forced_check(bundle, int8_bundle, params, prompts, served, k4):
+def teacher_forced_check(bundle, params, prompts, served, kernels, band,
+                         controls):
     """Each decode step's logits, with the served tokens fed back, against
-    the full-sequence forward pass through the plain attention over the
-    prompt and the tokens before it, at the same position: cache lengths
-    S + 1 .. S + n - 1, past the local layers' window. The band must catch
-    (some step outside it) the int8 KV cache, the lower-precision control,
-    and each of ``DECODE_FAULTS``."""
+    the full-sequence forward pass through the plain kernels over the
+    prompt and the tokens before it, at the same position (cache lengths S
+    + 1 .. S + n - 1). ``controls`` maps a name to a faulty decode: (model
+    bundle, hand-off applied to each state entry of the prefill's cache or
+    None, context factory). The band must catch each control at some
+    step."""
     import torch
 
     b, s = prompts.shape
     n = served.shape[1]
-    with sequence_attention(k4.attention_bhsd_ref):
+    with plain_kernels(*kernels):
         want = torch.stack([
             bundle.forward_fn(params, {"tokens": torch.cat(
                 [prompts[j], served[j, :-1]])[None]})[0, s:].to(torch.float32)
             for j in range(b)])
 
-    def readings(model):
-        decoded = replay_decode(model, params, prompts, served)
+    def readings(model, handoff=None, context=contextlib.nullcontext):
+        with context():
+            decoded = replay_decode(model, params, prompts, served, handoff)
         return [rel_l2(decoded[j, i], want[j, i])
                 for j in range(b) for i in range(n - 1)]
 
     sound = readings(bundle)
-    controls = {"int8 KV cache": readings(int8_bundle)}
-    for name, fault in DECODE_FAULTS.items():
-        with decode_fault(fault):
-            controls[name] = readings(bundle)
-    what = f"{bundle.cfg.param_dtype} teacher-forced decode"
+    faulty = {name: readings(*spec) for name, spec in controls.items()}
+    what = (f"{bundle.cfg.name} {bundle.cfg.param_dtype} "
+            f"({bundle.cfg.num_layers} layers) teacher-forced decode")
     log(f"serving path: {what} ({b} requests x {n - 1} steps, cache length "
         f"{s + 1}..{s + n - 1}) vs the forward pass: relative L2 median "
-        f"{statistics.median(sound):.4g}, max {max(sound):.4g} (band "
-        f"{DECODE_BAND_F32:.4g}); controls, min and max: " + "; ".join(
+        f"{statistics.median(sound):.4g}, max {max(sound):.4g} "
+        f"(band {band:.4g}); controls, min and max: " + "; ".join(
             f"{name} {min(r):.4g}, {max(r):.4g}"
-            for name, r in controls.items()))
-    if max(sound) > DECODE_BAND_F32:
+            for name, r in faulty.items()))
+    if max(sound) > band:
         fail(f"{what} logits differ from the forward pass's by {max(sound)} "
-             f"relative (band {DECODE_BAND_F32})")
-    for name, r in controls.items():
-        if max(r) <= DECODE_BAND_F32:
-            fail(f"{what}: the band {DECODE_BAND_F32} does not catch the "
-                 f"control '{name}' (at most {max(r)})")
+             f"relative (band {band})")
+    for name, r in faulty.items():
+        if max(r) <= band:
+            fail(f"{what}: the band {band} does not catch the control "
+                 f"'{name}' (at most {max(r)})")
     return {"rel_l2_max": max(sound),
             "controls_rel_l2": {k: [min(r), max(r)]
-                                for k, r in controls.items()}}
+                                for k, r in faulty.items()}}
+
+
+# ------------------------------------------------------------------ state paths
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` replaced by ``fn`` for the duration."""
+    kept = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
+
+
+@contextlib.contextmanager
+def plain_kernels(k4, k5, k6, carry=True):
+    """Run the models' K4, K5 and K6 calls through their plain versions
+    (the dispatch in each ``ops.py`` calls the swapped name for CUDA
+    tensors); with ``carry=False``, K5 and K6 through the controls that
+    drop the carried state (K5 at every chunk, K6 every ``K6_RESTART``
+    steps; prefill only: K5's control ignores an initial state)."""
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    def ssd(x, dt, a_neg, bmat, cmat, *, chunk, h0=None):
+        args = (x.transpose(1, 2), dt.transpose(1, 2), a_neg, bmat, cmat,
+                chunk)
+        y, h = (k5.ssd_chunked_ref(*args, h0) if carry
+                else ssd_without_carry(k5, *args))
+        return y.transpose(1, 2), h
+
+    def rglru(a, b, h0=None):
+        return (k6.rglru_scan_ref(a, b, h0) if carry
+                else rglru_restarting(k6, a, b, h0))
+
+    with sequence_attention(k4.attention_bhsd_ref), \
+            swapped(ssd_ops, "ssd_chunked_cuda", ssd), \
+            swapped(rglru_ops, "rglru_scan_cuda", rglru):
+        yield
+
+
+def redraw_decays(params, cfg, gen):
+    """The one cut from the reference's init rule: the decay parameters,
+    whose init (a_log = dt_bias = 0, lam = 1) makes both recurrences forget
+    within a few tokens, are drawn from the published init ranges, so that
+    state carries over hundreds of tokens as with trained weights.
+    Mamba-2: A = exp(a_log) in U(1, 16), softplus(dt_bias) log-uniform in
+    [1e-3, 1e-1]; Griffin: a = sigmoid(lam)^c in U(0.9, 0.999)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.rglru import C_FACTOR
+
+    def u(n, lo, hi):
+        return torch.rand(n, generator=gen, device=gen.device) * (hi - lo) + lo
+
+    with torch.no_grad():
+        for kind, layer, _ in tf.layers_in_order(params, cfg):
+            if kind == "ssd":
+                mixer = layer["ssd"]
+                h = mixer["a_log"].numel()
+                mixer["a_log"].copy_(torch.log(u(h, 1.0, 16.0)))
+                dt = torch.exp(u(h, math.log(1e-3), math.log(1e-1)))
+                mixer["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+            elif kind == "rec":
+                lam = layer["rec"]["lam"]
+                s = u(lam.numel(), 0.9, 0.999) ** (1.0 / C_FACTOR)
+                lam.copy_(torch.log(s) - torch.log1p(-s))
+
+
+def zero_state(entry):
+    entry["h"].zero_()
+
+
+def drop_conv_tail(entry):
+    entry["conv"].zero_()
+
+
+@contextlib.contextmanager
+def recorded_blocks(record):
+    """Append each block's (input, output) to ``record`` as the decoder
+    runs it."""
+    from repro_torch.models import transformer as tf
+
+    inner = tf.block_apply_seq
+
+    def run(params, x, positions, cfg, kind, **kw):
+        out = inner(params, x, positions, cfg, kind, **kw)
+        record.append((x, out[0]))
+        return out
+
+    with swapped(tf, "block_apply_seq", run):
+        yield
+
+
+def layerwise_check(bundle, params, prompt, served, kernels, bands):
+    """Every block fed the inputs that it gets in the forward pass through
+    the plain kernels over ``prompt`` (1, S) and the served tokens before
+    the last, so that no difference carries from one layer to the next:
+    its prefill over the prompt through the kernels, and then its decode
+    steps over the served tokens, continuing the entry that the prefill
+    handed over, against that forward pass. Each reading is the relative L2
+    of the block's contribution (output minus input). ``bands`` maps each
+    block kind to its (prefill, decode) bands, and each band must leave its
+    controls outside: in a state block the no-carry prefill and the decode
+    with its state zeroed or its conv tail dropped at the hand-off; in an
+    attention block the bf16-probability prefill and the decode with its
+    window dropped."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import default_positions
+
+    cfg, dev = bundle.cfg, bundle.device
+    s, n = prompt.shape[1], served.shape[1]
+    tokens = torch.cat([prompt, served[:, :-1]], dim=1)
+    record, through_kernels = [], []
+    with plain_kernels(*kernels), recorded_blocks(record):
+        bundle.prefill_fn(params, {"tokens": tokens})
+    with recorded_blocks(through_kernels):
+        bundle.prefill_fn(params, {"tokens": tokens})
+    # how far the kernels' own forward drifts from the plain one, block by
+    # block (a diagnostic: each block here also takes the other's input)
+    drift = [rel_l2(yk, yp) for (_, yk), (_, yp) in zip(through_kernels,
+                                                         record)]
+    del through_kernels
+    log(f"serving path: {cfg.name} {cfg.param_dtype} forward through the "
+        f"kernels vs the plain versions, each block's output in turn: "
+        f"relative L2 " + ", ".join(f"{d:.2g}" for d in drift))
+    positions = default_positions(cfg, 1, tokens.shape[1], device=dev)
+    nothing = contextlib.nullcontext
+    # per kind of entry: the prefill's control, and the decode's variants
+    # (name -> (hand-off applied to the entry, context of the steps))
+    state_checks = (
+        ("no-carry control", lambda: plain_kernels(*kernels, carry=False)),
+        {"sound": (None, nothing),
+         "state zeroed at hand-off": (zero_state, nothing),
+         "conv tail dropped at hand-off": (drop_conv_tail, nothing)})
+    # (Of DECODE_FAULTS only the dropped window: with these weights the
+    # attention is near one-hot, so one key more or less than the window,
+    # or the new row unseen, leaves the output unchanged unless that key
+    # holds the maximum; on the card both read as the sound decode.)
+    attention_checks = (
+        ("bf16-probability control",
+         lambda: sequence_attention(attention_bf16_probs)),
+        {"sound": (None, nothing), "window dropped": (
+            None, lambda: decode_fault(DECODE_FAULTS["window dropped"]))})
+    # stage -> kind -> reading name -> readings
+    readings = {stage: {kind: {} for kind in set(layer_kinds(cfg))}
+                for stage in ("prefill", "decode")}
+    layers = list(tf.layers_in_order(params, cfg))
+    if len(layers) != len(record):
+        fail(f"{len(record)} blocks recorded, {len(layers)} layers")
+    for (kind, layer, _), (x, y) in zip(layers, record):
+        want = y - x
+        pre = x[:, :s]
+        prefill = readings["prefill"][kind]
+        got, entry = tf.block_apply_seq(layer, pre, positions[..., :s], cfg,
+                                        kind)
+        prefill.setdefault("sound", []).append(rel_l2(got - pre, want[:, :s]))
+        (control, faulty), variants = (
+            attention_checks if "self" in entry else state_checks)
+        with faulty():
+            ctrl, _ = tf.block_apply_seq(layer, pre, positions[..., :s], cfg,
+                                         kind)
+        prefill.setdefault(control, []).append(rel_l2(ctrl - pre,
+                                                      want[:, :s]))
+        for name, (handoff, context) in variants.items():
+            step = tf.pad_cache_to({"groups": {}, "tail": {"0": entry}}, cfg,
+                                   s + n)["tail"]["0"]
+            step = {k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in step.items()}
+            if handoff is not None:
+                handoff(step)
+            with context():
+                for t in range(s, s + n - 1):
+                    out, new = tf.block_apply_step(
+                        layer, x[:, t:t + 1], positions[..., t:t + 1], step,
+                        t + 1, cfg, kind)
+                    step.update(new)
+                    readings["decode"][kind].setdefault(name, []).append(
+                        rel_l2(out - x[:, t:t + 1], want[:, t:t + 1]))
+    del record
+    what = f"{cfg.name} {cfg.param_dtype} layer by layer"
+    for (stage, by_kind), i in zip(readings.items(), (0, 1)):
+        for kind, by_name in sorted(by_kind.items()):
+            band = bands[kind][i]
+            sound = by_name["sound"]
+            count = layer_kinds(cfg).count(kind)
+            log(f"serving path: {what}, {stage}, {count} {kind} layers: "
+                f"relative L2 max {max(sound):.4g} (band "
+                f"{band:.4g})" + "".join(
+                    f"; {name} max {max(r):.4g}"
+                    for name, r in by_name.items() if name != "sound"))
+            if max(sound) > band:
+                fail(f"{what}, {stage}, {kind}: relative L2 {max(sound)} "
+                     f"above {band}")
+            for name, r in by_name.items():
+                if name != "sound" and max(r) <= band:
+                    fail(f"{what}, {stage}, {kind}: the band {band} does not "
+                         f"catch the control '{name}' (at most {max(r)})")
+    return {"drift": drift, **{
+        stage: {kind: {name: max(r) for name, r in by_name.items()}
+                for kind, by_name in by_kind.items()}
+        for stage, by_kind in readings.items()}}
+
+
+def attention_peak(q, k, **kw) -> dict:
+    """How peaked the plain version's attention is: the std of the scaled
+    scores over the live (q, k) pairs, and over queries and heads the median
+    and the 90th percentile of the probability mass off each row's largest
+    key (1 minus the largest probability, from the exponentials of the
+    other keys' score gaps, so that it reads below float32's unit at 1)."""
+    import torch
+
+    s, mask = attention_scores(q, k, **kw)
+    std = float(s.masked_select(mask.expand_as(s)).std())
+    gaps = s - s.masked_fill(~mask, -2e38).amax(-1, keepdim=True)
+    e = torch.exp(gaps).masked_fill(~mask, 0.0)
+    off = e.masked_fill(gaps == 0, 0.0).sum(-1)
+    off = (off / (1 + off)).flatten().to(torch.float64)
+    return {"score_std": std, "off_top_median": float(off.median()),
+            "off_top_p90": float(off.quantile(0.9))}
+
+
+def attention_sharpness(bundle, params, prompt, kernels):
+    """``attention_peak`` of each attention layer in turn, in the forward
+    pass of ``bundle`` through the plain kernels over ``prompt`` (1, S)."""
+    k4 = kernels[0]
+    stats = []
+
+    def probe(q, k, v, **kw):
+        stats.append(attention_peak(q, k, **kw))
+        return k4.attention_bhsd_ref(q, k, v, **kw)
+
+    with plain_kernels(*kernels), sequence_attention(probe):
+        bundle.prefill_fn(params, {"tokens": prompt})
+    log(f"serving path: {bundle.cfg.name} {bundle.cfg.param_dtype} "
+        "attention, layer by layer: score std " + ", ".join(
+            f"{a['score_std']:.4g}" for a in stats) + "; mass off the "
+        "largest key, median (90th percentile) " + ", ".join(
+            f"{a['off_top_median']:.3g} ({a['off_top_p90']:.3g})"
+            for a in stats))
+    return stats
+
+
+def run_state_serving_path(arch, kernels, counters, device=None):
+    """Full-width ``arch`` (mamba2_1_3b or recurrentgemma_2b) through
+    ``build_model`` and ``ServeEngine.serve_queue`` on ``device`` (None =
+    the CUDA card), its decay parameters redrawn (``redraw_decays``), with
+    its checks: the serving checks of ``serve_and_check``, then, on the
+    weights cast to float32 and at the depth that ``STATE_SERVING`` gives,
+    the prefill logits and the teacher-forced decode against bands from
+    chip readings that their no-carry, hand-off and attention-fault
+    controls must fall outside, and every block at full depth
+    (``layerwise_check``). Returns the path's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+
+    spec = STATE_SERVING[arch]
+    bundle, params, gen, built = build_seeded(arch, STATE_SEED, device)
+    redraw_decays(params, bundle.cfg, gen)
+    cfg, dev = bundle.cfg, bundle.device
+    rng = np.random.default_rng(STATE_SEED)
+    reqs = list(rng.integers(0, cfg.vocab_size,
+                             (SERVE_REQUESTS, spec["prompt"]))
+                .astype(np.int32))
+    numbers, prompts, served = serve_and_check(bundle, params, reqs, counters)
+
+    params = params.to(torch.float32)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    bundle32 = build_model(cfg32, dev)
+    # the first layers and the tail, on the same weights
+    cut = build_model(dataclasses.replace(cfg32, num_layers=spec["layers"]),
+                      dev)
+    logits = prefill_logits_check(
+        cut, params, [prompts], kernels,
+        ("no-carry control", lambda: plain_kernels(*kernels, carry=False)),
+        spec["logits_band"])
+    decode = teacher_forced_check(
+        cut, params, prompts, served, kernels, spec["decode_band"],
+        {"state zeroed at hand-off": (cut, zero_state),
+         "conv tail dropped at hand-off": (cut, drop_conv_tail),
+         **{name: (cut, None, lambda f=DECODE_FAULTS[name]: decode_fault(f))
+            for name in spec["decode_faults"]}})
+    outcome = {**numbers, **built, "prompt": spec["prompt"],
+               "end_to_end_layers": spec["layers"],
+               "prefill_logits_f32": logits, "decode_f32": decode}
+    if "flash_attention" in (KERNEL_OF_KIND[k] for k in layer_kinds(cfg)):
+        outcome["attention_sharpness_f32"] = attention_sharpness(
+            bundle32, params, prompts[:1], kernels)
+    outcome["layerwise_f32"] = layerwise_check(
+        bundle32, params, prompts[:1], served[:1], kernels,
+        spec["layer_bands"])
+    del params
+    torch.cuda.empty_cache()
+    return outcome
 
 
 # ------------------------------------------------------------------ main
@@ -1095,6 +1865,8 @@ def main() -> int:
     from repro_torch.kernels import attention as k4
     from repro_torch.kernels import checksum as k3
     from repro_torch.kernels import nvcc
+    from repro_torch.kernels import rglru as k6
+    from repro_torch.kernels import ssd as k5
     from repro_torch.kernels import swarm as kernels
 
     smi = subprocess.run(
@@ -1110,28 +1882,48 @@ def main() -> int:
     require_hopper(dev)
 
     t0 = time.perf_counter()
-    libs = nvcc.build(
-        (kernels.kernel.SOURCE, kernels.kernel.NVCC_FLAGS),
-        (k3.kernel.SOURCE, k3.kernel.NVCC_FLAGS),
-        (k4.kernel.SOURCE, k4.kernel.NVCC_FLAGS),
-    )
+    libs = nvcc.build(*((m.kernel.SOURCE, m.kernel.NVCC_FLAGS)
+                        for m in (kernels, k3, k4, k5, k6)))
     log(f"build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f}s")
 
-    k1 = check_k1(kernels, dev)
-    check_k3(k3, dev)
-    k4_record = check_k4(k4, dev)
-    launches, tables, outcome = run_main_path(kernels)
-    k2 = check_k2(kernels, dev, tables)
+    with phase("K1, K3, K4, K5, K6"):
+        k1 = check_k1(kernels, dev)
+        check_k3(k3, dev)
+        k4_record = check_k4(k4, dev)
+        k5_record = check_k5(k5, dev)
+        k6_record = check_k6(k6, dev)
+    with phase("fleet path and K2"):
+        launches, tables, outcome = run_main_path(kernels)
+        k2 = check_k2(kernels, dev, tables)
     k1["launches"] = launches["rarest_argmin"]
     k2["launches"] = launches["waterfill"]
     log("fleet path outcome: " + json.dumps(outcome))
-    k3_record, broadcast = run_broadcast_path(k3)
+    with phase("broadcast path"):
+        k3_record, broadcast = run_broadcast_path(k3)
     log("broadcast path outcome: " + json.dumps(broadcast))
-    serving = run_serving_path(k4)
-    k4_record["launches"] = serving["k4_launches"]
+    counters = {"flash_attention": k4.flash_attention_cuda,
+                "ssd_chunked": k5.ssd_chunked_cuda,
+                "rglru_scan": k6.rglru_scan_cuda}
+    with phase(f"serving path {SERVE_ARCH} with its checks"):
+        serving = run_serving_path((k4, k5, k6), counters)
     log("serving path outcome: " + json.dumps(serving))
-    log(json.dumps({"kernels": [k1, k2, k3_record, k4_record]}))
+    paths = {SERVE_ARCH: serving["launches"]}
+    for arch in STATE_SERVING:
+        with phase(f"serving path {arch} with its checks"):
+            outcome = run_state_serving_path(arch, (k4, k5, k6), counters)
+        log(f"serving path {arch} outcome: " + json.dumps(outcome))
+        paths[arch] = outcome["launches"]
+    # each kernel's launches on the first serving path that runs it
+    k4_record["launches"] = paths[SERVE_ARCH]["flash_attention"]
+    k5_record["launches"] = paths["mamba2_1_3b"]["ssd_chunked"]
+    k6_record["launches"] = paths["recurrentgemma_2b"]["rglru_scan"]
+    for record in (k4_record, k5_record, k6_record):
+        record["launches_by_path"] = {
+            arch: counts[record["name"]] for arch, counts in paths.items()}
+    log(smi)  # again, so that the end of a long log names the card too
+    log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k5_record,
+                                k6_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

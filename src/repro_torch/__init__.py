@@ -5,12 +5,13 @@ simulated), with its device work running as hand-written CUDA kernels for
 Hopper (``sm_90a``) instead of Pallas kernels for a TPU. The JAX package
 stays the reference; this package imports neither it nor JAX. Ported so
 far: the framework-free core and the collective fabric
-(:mod:`repro_torch.core`), the swarm, checksum and flash-attention kernels
-(:mod:`repro_torch.kernels`), the data ingest modules
-(:mod:`repro_torch.data`), the checkpoint broadcast walkthrough
-(:mod:`repro_torch.examples.checkpoint_broadcast`), and the serving path:
-:mod:`repro_torch.configs`, the dense models (:mod:`repro_torch.models`),
-:mod:`repro_torch.serve` and ``python -m repro_torch.launch.serve``.
+(:mod:`repro_torch.core`), all six kernels (:mod:`repro_torch.kernels`:
+swarm, checksum, flash attention, chunked SSD, RG-LRU scan), the data
+ingest modules (:mod:`repro_torch.data`), the checkpoint broadcast
+walkthrough (:mod:`repro_torch.examples.checkpoint_broadcast`), and the
+serving path: :mod:`repro_torch.configs`, the dense, Mamba-2 and
+RecurrentGemma models (:mod:`repro_torch.models`), :mod:`repro_torch.serve`
+and ``python -m repro_torch.launch.serve``.
 
 Device rule: entry points that run on a device take ``device=None``,
 which means CUDA and raises when CUDA is missing; ``device="cpu"`` runs

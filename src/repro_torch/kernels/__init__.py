@@ -10,4 +10,7 @@ raises). ``nvcc.py`` builds and loads every CUDA source the same way.
   swarm/      masked rarest-argmin + max-min water-filling (the fleet tick)
   checksum/   the device checksum (checkpoint bundle integrity)
   attention/  flash-attention forward (the models' sequence attention)
+  ssd/        the chunked Mamba-2 SSD mixer (the ssd blocks' sequence form)
+  rglru/      the RG-LRU linear-recurrence scan (the rec blocks' sequence
+              form)
 """

@@ -3,8 +3,17 @@
 Initialises weights from a seed and serves batched generation through the
 slot engine, at the reduced size of the chosen architecture (the
 reference's ``.reduce()``), on the CUDA card (``--device cpu`` runs the
-kernels' plain PyTorch versions on the host). ``--ckpt-dir`` restore waits
-for the port of ``train/checkpoint.py``.
+kernels' plain PyTorch versions on the host). The dense archs (default
+``gemma2_2b``) run K4; ``--arch mamba2_1_3b`` runs the Mamba-2 SSD blocks
+through K5, ``--arch recurrentgemma_2b`` its RG-LRU blocks through K6 and
+its local attention through K4, e.g.::
+
+    python -m repro_torch.launch.serve --arch mamba2_1_3b --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma_2b
+
+The MoE archs and seamless raise ``NotImplementedError`` (``ROADMAP.md``
+queue 1 item 6). ``--ckpt-dir`` restore waits for the port of
+``train/checkpoint.py``.
 """
 
 from __future__ import annotations

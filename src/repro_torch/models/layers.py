@@ -27,6 +27,7 @@ import torch.nn.functional as F
 # logical axis vocabulary (the JAX package's launch/partitioning.py rules)
 LAYERS, EMBED, MLP, VOCAB = "layers", "embed", "mlp", "vocab"
 QHEADS, KVHEADS, HEADDIM = "q_heads", "kv_heads", "head"
+LRU, SSM_INNER, SSM_STATE, SSM_HEADS = "lru", "ssm_inner", "ssm_state", "ssm_heads"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,20 +1,25 @@
 """Decoder stack (counterpart of ``repro/models/transformer.py``).
 
 Layers are ``group_count`` repetitions of ``cfg.block_pattern`` (gemma2:
-``("local_attn", "attn")``) plus a tail for non-divisible depths. The JAX
-package stacks each pattern position's parameters along a leading 'layers'
-axis and drives the stack with ``jax.lax.scan``; here the parameters are
-one module per layer (``groups.<i>.<g>`` is repetition ``g`` of pattern
-position ``i``) and a Python loop runs them in the same order: for each
-repetition, the pattern's positions in turn, then the tail.
+``("local_attn", "attn")``; recurrentgemma: ``("rec", "rec",
+"local_attn")``; mamba2: ``("ssd",)``) plus a tail for non-divisible
+depths. The JAX package stacks each pattern position's parameters along a
+leading 'layers' axis and drives the stack with ``jax.lax.scan``; here the
+parameters are one module per layer (``groups.<i>.<g>`` is repetition
+``g`` of pattern position ``i``) and a Python loop runs them in the same
+order: for each repetition, the pattern's positions in turn, then the
+tail.
 
 Caches mirror the structure: ``{"groups": {i: [entry per repetition]},
-"tail": {i: entry}}``, each attention entry ``{"self": {"k", "v"[,
-"k_scale", "v_scale"]}}`` of ``(B, capacity, Hkv, D)``.
+"tail": {i: entry}}``. An attention entry is ``{"self": {"k", "v"[,
+"k_scale", "v_scale"]}}`` of ``(B, capacity, Hkv, D)``, written in place
+row by row; a state entry (``rec``, ``ssd``) is ``{"h", "conv"}`` of a
+constant size, replaced by a new one at every decode step.
 
-Ported block kinds: ``attn`` and ``local_attn`` with a dense FFN. ``rec``
-(RG-LRU), ``ssd`` (Mamba-2), MoE FFNs and the encoder raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+Ported block kinds: ``attn`` and ``local_attn`` with a dense FFN, ``rec``
+(RG-LRU with a dense MLP, kernel K6) and ``ssd`` (Mamba-2, kernel K5).
+MoE FFNs and the encoder raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -29,15 +34,13 @@ from .layers import (
     embed_logits, embed_lookup, embed_specs, mlp_apply, mlp_specs, rms_norm,
     rms_norm_spec, softcap, stack_specs,
 )
+from .rglru import rglru_cache_init, rglru_sequence, rglru_specs, rglru_step
+from .ssd import ssd_cache_init, ssd_sequence, ssd_specs, ssd_step
 
 Params = Any
 Cache = Any
 
 _LATER = {
-    "rec": "the RG-LRU block (models/rglru.py with kernel K6) waits for "
-           "ROADMAP.md queue 1 item 6 and queue 2 K6",
-    "ssd": "the Mamba-2 SSD block (models/ssd.py with kernel K5) waits for "
-           "ROADMAP.md queue 1 item 6 and queue 2 K5",
     "moe": "MoE FFNs (models/moe.py) wait for ROADMAP.md queue 1 item 6",
     "encoder": "the encoder and cross attention (seamless) wait for "
                "ROADMAP.md queue 1 item 6",
@@ -52,13 +55,20 @@ def not_ported(what: str) -> NotImplementedError:
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
-    if kind in ("rec", "ssd"):
-        raise not_ported(kind)
+    d = cfg.d_model
+    if kind == "ssd":
+        return {"ln1": rms_norm_spec(d), "ssd": ssd_specs(cfg)}
+    if kind == "rec":
+        return {
+            "ln1": rms_norm_spec(d),
+            "rec": rglru_specs(cfg),
+            "ln2": rms_norm_spec(d),
+            "ffn": mlp_specs(d, cfg.d_ff, cfg.act),
+        }
     if kind not in ("attn", "local_attn"):
         raise ValueError(f"unknown block kind {kind!r}")
     if cfg.is_moe:
         raise not_ported("moe")
-    d = cfg.d_model
     return {
         "ln1": rms_norm_spec(d),
         "attn": attn.attn_specs(cfg),
@@ -118,6 +128,17 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, kind: str, *, causal: bool = True
                     ) -> tuple[torch.Tensor, dict]:
     """One block over a full sequence. Returns (x, cache_entry)."""
+    if kind == "ssd":
+        h, state = ssd_sequence(
+            params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
+        return x + h, state
+    if kind == "rec":
+        h, (hl, tail) = rglru_sequence(
+            params["rec"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
+        x = x + h
+        x = x + mlp_apply(params["ffn"],
+                          rms_norm(x, params["ln2"], cfg.norm_eps), cfg.act)
+        return x, {"h": hl, "conv": tail}
     h, (k, v) = attn.attention_sequence(
         params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), positions,
         cfg, local=kind == "local_attn", causal=causal,
@@ -137,7 +158,22 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
 def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
                      cache: dict, cache_len: int, cfg: ModelConfig, kind: str
                      ) -> tuple[torch.Tensor, dict]:
-    """One block for one token (B, 1, D); writes its K/V into ``cache``."""
+    """One block for one token (B, 1, D). Returns (x, entry): attention
+    writes its K/V row into ``cache`` and returns it; a state block returns
+    a new entry and leaves ``cache`` as it was."""
+    if kind == "ssd":
+        h, state = ssd_step(
+            params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cache,
+            cfg)
+        return x + h, state
+    if kind == "rec":
+        h, state = rglru_step(
+            params["rec"], rms_norm(x, params["ln1"], cfg.norm_eps), cache,
+            cfg)
+        x = x + h
+        x = x + mlp_apply(params["ffn"],
+                          rms_norm(x, params["ln2"], cfg.norm_eps), cfg.act)
+        return x, state
     h, _ = attn.attention_step(
         params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), position,
         cache["self"], cache_len, cfg, local=kind == "local_attn",
@@ -199,11 +235,14 @@ def decode_step(
     cfg: ModelConfig,
 ) -> tuple[torch.Tensor, Cache]:
     """One token through all layers. Returns (logits (B, 1, V), cache),
-    the cache updated in place at row ``cache_len - 1``."""
+    the cache dict updated in place: attention entries at row ``cache_len -
+    1``, state entries with the step's new ``h`` and ``conv``."""
     x = embed_lookup(params["embed"], token, cfg.d_model)
     for kind, layer, where in layers_in_order(params, cfg):
-        x, _ = block_apply_step(layer, x, position, _entry(cache, where),
-                                cache_len, cfg, kind)
+        entry = _entry(cache, where)
+        x, new = block_apply_step(layer, x, position, entry, cache_len, cfg,
+                                  kind)
+        entry.update(new)
     return _head(params, x, cfg), cache
 
 
@@ -231,25 +270,32 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
 def cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
                device) -> Cache:
     """Empty cache matching decode_step's expectations."""
-    for kind in cfg.block_pattern:
+
+    def entry(kind: str) -> dict:
         block_specs(cfg, kind)  # raises for the kinds not ported
+        if kind == "ssd":
+            return ssd_cache_init(cfg, batch, dtype, device)
+        if kind == "rec":
+            return rglru_cache_init(cfg, batch, dtype, device)
+        return _attn_cache_init(cfg, batch, capacity, dtype, device)
+
     return {
         "groups": {
-            str(i): [_attn_cache_init(cfg, batch, capacity, dtype, device)
-                     for _ in range(cfg.group_count)]
-            for i in range(len(cfg.block_pattern))
+            str(i): [entry(kind) for _ in range(cfg.group_count)]
+            for i, kind in enumerate(cfg.block_pattern)
         },
-        "tail": {
-            str(i): _attn_cache_init(cfg, batch, capacity, dtype, device)
-            for i in range(len(cfg.tail_pattern))
-        },
+        "tail": {str(i): entry(kind)
+                 for i, kind in enumerate(cfg.tail_pattern)},
     }
 
 
 def pad_cache_to(cache: Cache, cfg: ModelConfig, capacity: int) -> Cache:
-    """Grow prefill K/V entries (length S) to ``capacity`` rows."""
+    """Grow prefill K/V entries (length S) to ``capacity`` rows; state
+    entries, of a constant size, pass through."""
 
     def fix(entry: dict) -> dict:
+        if "self" not in entry:
+            return entry
         kv = entry["self"]
         pad_n = capacity - kv["k"].shape[1]
         if pad_n <= 0:

@@ -36,6 +36,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.examples.checkpoint_broadcast\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serve\n"
         "import repro_torch.launch.serve, repro_torch.kernels.attention\n"
+        "import repro_torch.kernels.ssd, repro_torch.kernels.rglru\n"
+        "import repro_torch.models.ssd, repro_torch.models.rglru\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

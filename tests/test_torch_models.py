@@ -5,8 +5,9 @@ init, and handed to both packages: the port's parameters are the
 reference's, through ``params_from_jax``. Layers are held at 1e-6 in
 float32; whole-model logits (forward, prefill, teacher-forced decode) at
 the reference's own decode band, ``atol=3e-4, rtol=1e-3``
-(``tests/test_decode_equivalence.py``). On the CPU the sequence attention
-takes K4's plain version.
+(``tests/test_decode_equivalence.py``). On the CPU the sequence attention,
+the SSD mixer and the RG-LRU scan take the plain versions of K4, K5 and
+K6.
 """
 
 import jax
@@ -30,8 +31,10 @@ from repro_torch.models import layers as tl
 from repro_torch.models.model import default_positions as port_positions
 
 DENSE = ["gemma2_2b", "granite_3_2b", "qwen3_8b", "chatglm3_6b", "qwen2_vl_7b"]
-NOT_PORTED = ["recurrentgemma_2b", "mamba2_1_3b", "dbrx_132b", "arctic_480b",
-              "seamless_m4t_medium"]
+# the state-space families: RG-LRU with local attention, and Mamba-2 SSD
+STATE = ["recurrentgemma_2b", "mamba2_1_3b"]
+SERVED = DENSE + STATE
+NOT_PORTED = ["dbrx_132b", "arctic_480b", "seamless_m4t_medium"]
 LAYER_TOL = dict(atol=1e-6, rtol=1e-6)
 DECODE_TOL = dict(atol=3e-4, rtol=1e-3)
 RNG = np.random.default_rng(0)
@@ -108,7 +111,7 @@ def test_embed_lookup_logits_and_softcap(tie):
 
 
 def test_spec_trees_match_the_reference():
-    for arch in DENSE:
+    for arch in SERVED:
         port = tl.tree_leaves(port_tf.decoder_specs(port_config(arch)))
         ref = jax.tree_util.tree_flatten_with_path(
             jax_tf.decoder_specs(jax_config(arch)),
@@ -161,17 +164,24 @@ def pair():
     return get
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_params_from_jax_consumes_every_leaf(arch, pair):
     jb, params, pb, model = pair(arch)
     leaves = jax.tree.leaves(params)
     assert sum(int(np.prod(x.shape)) for x in leaves) == \
         sum(p.numel() for p in model.parameters())
     cfg = pb.cfg
-    wq = np.asarray(params["groups"]["0"]["attn"]["wq"])
-    for g in range(cfg.group_count):
+    # every stacked leaf of pattern position 0's mixer, split layer by layer
+    mixer = {"ssd": "ssd", "rec": "rec"}.get(cfg.block_pattern[0], "attn")
+    for name, leaf in params["groups"]["0"][mixer].items():
+        stacked = np.asarray(leaf)
+        for g in range(cfg.group_count):
+            np.testing.assert_array_equal(
+                model.groups["0"][g][mixer][name].numpy(), stacked[g])
+    for i in range(len(cfg.tail_pattern)):
         np.testing.assert_array_equal(
-            model.groups["0"][g].attn.wq.numpy(), wq[g])
+            model.tail[str(i)]["ln1"].numpy(),
+            np.asarray(params["tail"][str(i)]["ln1"]))
     tree = jax.tree.map(np.asarray, params)
     extra = dict(tree, stray={"w": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="1 leaves with no parameter"):
@@ -187,7 +197,7 @@ def _tokens(cfg, b, s, seed=0):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_prefill_and_decode_match_the_reference(arch, pair):
     jb, params, pb, model = pair(arch)
     jcfg, cfg = jb.cfg, pb.cfg
@@ -237,6 +247,66 @@ def test_decode_writes_the_cache_in_place(pair):
                            port_positions(pb.cfg, 1, 1, offset=8), cache, 9)
     assert same["groups"]["0"][0]["self"]["k"] is k
     assert float(k[:, 8].abs().max()) > 0 and float(k[:, 9:].abs().max()) == 0
+
+
+@pytest.mark.parametrize("arch", STATE)
+def test_decode_replaces_state_entries_in_the_cache(arch, pair):
+    """A state entry (rec, ssd) is new at every step: ``decode_step``
+    writes it back into the cache dict it was given, and the next step
+    reads it from there."""
+    _, _, pb, model = pair(arch)
+    cfg = pb.cfg
+    toks = _tokens(cfg, 2, 12)
+    _, cache = pb.prefill_fn(model, {"tokens": _t(toks[:, :10])})
+    cache = port_tf.pad_cache_to(cache, cfg, 14)
+    entry = cache["groups"]["0"][0]
+    h, conv = entry["h"], entry["conv"]
+    lg, same = pb.decode_fn(model, _t(toks[:, 10:11]),
+                            port_positions(cfg, 2, 1, offset=10), cache, 11)
+    assert same is cache and same["groups"]["0"][0] is entry
+    assert entry["h"] is not h and not torch.equal(entry["h"], h)
+    np.testing.assert_array_equal(entry["conv"][:, :-1].numpy(),
+                                  conv[:, 1:].numpy())
+    # the step read the state it was handed: a zeroed state gives others
+    _, cache2 = pb.prefill_fn(model, {"tokens": _t(toks[:, :10])})
+    cache2 = port_tf.pad_cache_to(cache2, cfg, 14)
+    cache2["groups"]["0"][0]["h"].zero_()
+    lg2, _ = pb.decode_fn(model, _t(toks[:, 10:11]),
+                          port_positions(cfg, 2, 1, offset=10), cache2, 11)
+    assert not torch.allclose(lg, lg2, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", STATE)
+def test_cache_init_and_padding_match_the_reference(arch, pair):
+    """Empty caches have the reference's structure, shapes and dtype;
+    ``pad_cache_to`` grows the attention entries and passes the state
+    entries through unchanged."""
+    jb, _, pb, model = pair(arch)
+    cfg = pb.cfg
+    port = port_tf.cache_init(cfg, 2, 40, torch.bfloat16, "cpu")
+    ref = jax_tf.cache_init(jb.cfg, 2, 40, jnp.bfloat16)
+    got = [(path, tuple(t.shape), t.dtype) for path, t in tl.tree_leaves(
+        {"tail": port["tail"], "groups": {
+            i: {str(g): e for g, e in enumerate(entries)}
+            for i, entries in port["groups"].items()}})]
+    want = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
+        keys = [p.key for p in path]
+        if keys[0] == "groups":     # stacked: one entry per repetition
+            want += [("/".join([*keys[:2], str(g), *keys[2:]]),
+                      leaf.shape[1:], torch.bfloat16)
+                     for g in range(leaf.shape[0])]
+        else:
+            want.append(("/".join(keys), leaf.shape, torch.bfloat16))
+    assert sorted(got, key=str) == sorted(want, key=str)
+    _, cache = pb.prefill_fn(model, {"tokens": _t(_tokens(cfg, 2, 9))})
+    padded = port_tf.pad_cache_to(cache, cfg, 20)
+    for i, kind in enumerate(cfg.block_pattern):
+        before, after = cache["groups"][str(i)][0], padded["groups"][str(i)][0]
+        if kind in ("rec", "ssd"):
+            assert after is before
+        else:
+            assert after["self"]["k"].shape[1] == 20
 
 
 @pytest.mark.parametrize("z_weight", [0.0, 1e-4])
@@ -313,3 +383,13 @@ def test_build_model_needs_cuda_unless_told_cpu():
         pytest.skip("this host has CUDA: device=None resolves to the card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(port_config("gemma2_2b").reduce())
+
+
+@pytest.mark.parametrize("arch", STATE)
+def test_state_archs_need_cuda_unless_told_cpu(arch):
+    """At full width, as a user builds them: the card by default."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: device=None resolves to the card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(port_config(arch))
+    assert build_model(port_config(arch).reduce(), "cpu").device.type == "cpu"

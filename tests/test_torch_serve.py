@@ -1,7 +1,9 @@
 """The port's serving engine and launcher on the CPU: the invariants of
 ``tests/test_serve.py`` (greedy determinism, batch-order invariance,
 ``serve_queue`` equal to ``generate``, temperature seeds that differ), and
-greedy tokens equal to the reference engine's on the same parameters.
+greedy tokens equal to the reference engine's on the same parameters, for
+a dense arch and for the two state-space families (RG-LRU with local
+attention, Mamba-2 SSD), whose caches carry a recurrent state.
 """
 
 import jax
@@ -20,6 +22,7 @@ from repro_torch.models import build_model, params_from_jax
 from repro_torch.serve import ServeConfig, ServeEngine
 
 ARCH = "granite_3_2b"
+STATE = ["recurrentgemma_2b", "mamba2_1_3b"]
 # the reference's decode band (tests/test_decode_equivalence.py)
 ATOL, RTOL = 3e-4, 1e-3
 
@@ -92,15 +95,11 @@ def test_eos_stops_early(models):
     np.testing.assert_array_equal(out[0], want)
 
 
-def test_greedy_tokens_equal_the_reference_engine(models):
-    """Equal tokens follow from equal logits only where the top two logits
-    are further apart than the band, so that margin is asserted at every
-    step (on the reference's teacher-forced logits), not assumed."""
-    jb, params, pb, model = models
-    # the reference's greedy input (tests/test_serve.py::
-    # test_greedy_deterministic)
-    new = 6
-    prompts = np.ones((2, 8), np.int32) * 5
+def _greedy_against_the_reference(jb, params, pb, model, prompts, new):
+    """Greedy tokens of both engines. Equal tokens follow from equal logits
+    only where the top two logits are further apart than the band, so that
+    margin is asserted at every step (on the reference's teacher-forced
+    logits), not assumed."""
     want = JaxServeEngine(jb, params, JaxServeConfig(
         max_new_tokens=new)).generate(prompts)
     got = ServeEngine(pb, model, ServeConfig(max_new_tokens=new)).generate(
@@ -116,6 +115,28 @@ def test_greedy_tokens_equal_the_reference_engine(models):
     np.testing.assert_array_equal(got, want)
 
 
+def test_greedy_tokens_equal_the_reference_engine(models):
+    jb, params, pb, model = models
+    # the reference's greedy input (tests/test_serve.py::
+    # test_greedy_deterministic)
+    _greedy_against_the_reference(jb, params, pb, model,
+                                  np.ones((2, 8), np.int32) * 5, new=6)
+
+
+@pytest.mark.parametrize("arch", STATE)
+def test_greedy_tokens_of_the_state_archs_equal_the_reference_engine(arch):
+    """Prompts past mamba2's reduced chunk (8) and recurrentgemma's reduced
+    window (32), so that the prefill hands a state carried across chunks
+    and a windowed cache to the decode."""
+    jb = jax_build(jax_config(arch).reduce())
+    params = jb.init(jax.random.key(0))
+    pb = build_model(get_config(arch).reduce(), "cpu")
+    model = params_from_jax(jax.tree.map(np.asarray, params), pb.skeleton())
+    prompts = np.random.default_rng(2).integers(
+        0, pb.cfg.vocab_size, (2, 45)).astype(np.int32)
+    _greedy_against_the_reference(jb, params, pb, model, prompts, new=6)
+
+
 def test_engine_refuses_parameters_on_another_device(models):
     _, _, pb, model = models
     if torch.cuda.is_available():
@@ -128,6 +149,15 @@ def test_engine_refuses_parameters_on_another_device(models):
 def test_launch_serve_on_the_cpu(capsys):
     launch_serve.main(["--device", "cpu", "--requests", "3",
                        "--prompt-len", "8", "--new-tokens", "3",
+                       "--slots", "2"])
+    out = capsys.readouterr().out
+    assert "[launch.serve] 3 reqs x 3 new tokens" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", STATE)
+def test_launch_serve_state_archs_on_the_cpu(arch, capsys):
+    launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                       "--prompt-len", "20", "--new-tokens", "3",
                        "--slots", "2"])
     out = capsys.readouterr().out
     assert "[launch.serve] 3 reqs x 3 new tokens" in out and "on cpu" in out
