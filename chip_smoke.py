@@ -9,7 +9,8 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 1. the card's name and power limit (``nvidia-smi``), torch version, and
    compute capability, which must be 9.0;
 2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
-   ``nvcc`` for each source, all started together;
+   ``nvcc`` for each source, all started together, and K4's source once
+   more beside them under ``-Xptxas -v``: no K4 instance may spill;
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
    version, index-exact, at the fleet path's shape and on edge cases;
 4. K3 (device checksum) on the card against its plain version, exact,
@@ -18,14 +19,20 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    wrap, and a misaligned view;
 5. K4 (flash-attention forward) on the card against its plain version:
    the reference's five kernel cases, each also through the public
-   ``ops.flash_attention``; keys masked past ``skv_valid`` in a full and a
-   ragged tile; q scaled by 8 so the scores reach the softcap's bend; all
-   in float32 (2e-5) and bfloat16 (one unit in the last place: rtol 2^-7,
-   atol 1e-5). Then the serving path's prefill shape (B 4, S 4608, Hq 8,
-   Hkv 4, d 256, bfloat16, softcap 50) at window 0 and 4096, to one unit
-   and within a relative L2 band that a bf16-probability control must
-   fall outside; its time there against its plain version's and, with
-   softcap 0, against ``scaled_dot_product_attention``'s;
+   ``ops.flash_attention`` (which hands the kernel strided views of the
+   model's (B, S, H, D) tensors and must return a contiguous output); keys
+   masked past ``skv_valid`` in a full and a ragged tile; q scaled by 8 so
+   the scores reach the softcap's bend; all in float32 (2e-5) and bfloat16
+   (one unit in the last place: rtol 2^-7, atol 1e-5). Then the serving
+   path's prefill shape (B 4, S 4608, Hq 8, Hkv 4, d 256, bfloat16,
+   softcap 50) at window 0 and 4096 and recurrentgemma's (Hq 10 over 1,
+   window 2048) in both dtypes, to one unit and within a relative L2 band
+   that a bf16-probability control must fall outside. Times at both
+   prefill shapes against the
+   plain version's, the bound (achieved TFLOP/s and share of the bound)
+   and ``scaled_dot_product_attention``'s (softcap 0 at gemma2's shape,
+   the window as a mask at recurrentgemma's), and, at gemma2's, the
+   float32 SIMT kernel's: the arithmetic of the bf16 design it replaced;
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
    state (also through the public ``ops.ssd_mixer``), a ragged sequence,
@@ -71,7 +78,10 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     pass over the prompt and those tokens (cache lengths past the 4,096
     window). Each agreement is a relative-L2 band; each float32 band must
     leave a lower-precision control (bf16 probabilities, the int8 KV
-    cache) outside;
+    cache) outside. Beside the bfloat16 band, logged only: the same logits
+    with the plain attention's probabilities split as K4 splits them, and
+    through the float32 SIMT kernel on widened inputs (the replaced bf16
+    design);
 12. the state serving paths, ``mamba2_1_3b`` (48 ssd layers, 4,600-token
     prompts: the last SSD chunk ragged) and ``recurrentgemma_2b`` (18 rec
     and 8 local-attention layers, 4,608-token prompts past the 2,048
@@ -84,7 +94,12 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     K5's or K6's hand-off) against the forward pass, each within a band
     that its controls (state dropped between chunks or blocks; state
     zeroed or conv tail dropped at the hand-off) must fall outside;
-13. one JSON line of per-kernel numbers, then the last line
+13. K4's route check: every bfloat16 launch of the whole run must have
+    taken the tensor-core kernel and every float32 launch the SIMT one,
+    as the launch that ran reports its route (the wrapper counts launches
+    by dtype and route), and each serving path's launches by route must
+    add up to its count;
+14. one JSON line of per-kernel numbers, then the last line
     ``{"ok": true, "device": {...}}``.
 
 The parameter count of every serving path is checked against the
@@ -97,8 +112,11 @@ no result.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -164,6 +182,8 @@ K4_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # teacher-forced decode against the forward pass (4.5e-6 / 3.0e-4 with the
 # int8 KV cache).
 K4_REL_L2 = 3e-4
+# the kernel that K4 must launch for each dtype
+K4_ROUTE = {"bfloat16": "tensor_core", "float32": "simt"}
 LOGITS_BAND_F32 = 5e-5
 LOGITS_BAND_BF16 = 8.5e-3
 DECODE_BAND_F32 = 4e-5
@@ -770,20 +790,34 @@ def attention_scores(q, k, *, causal=True, window=0, softcap=0.0,
 
 
 def attention_bf16_probs(q, k, v, *, causal=True, window=0, softcap=0.0,
-                         skv_valid=None):
+                         skv_valid=None, split=False):
     """The lower-precision control for K4's bands: the plain version with
     its probabilities rounded to bfloat16 before P·V, as a kernel that
-    feeds bf16 P to the tensor cores computes. Same contract and layout as
-    ``attention_bhsd_ref``."""
+    feeds bf16 P to the tensor cores computes; with ``split``, as K4's
+    tensor-core kernel splits them instead, bf16(p) + bf16(p - bf16(p)).
+    Same contract and layout as ``attention_bhsd_ref``."""
     import torch
 
     b, hq, sq, d = q.shape
     s, mask = attention_scores(q, k, causal=causal, window=window,
                                softcap=softcap, skv_valid=skv_valid)
     p = torch.softmax(s.masked_fill(~mask, -2e38), dim=-1)
-    p = p.to(torch.bfloat16).to(torch.float32)
+    hi = p.to(torch.bfloat16).to(torch.float32)
+    p = hi + (p - hi).to(torch.bfloat16).to(torch.float32) if split else hi
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def attention_widened(q, k, v, **kw):
+    """K4 as the bf16 design it replaced computed it: the float32 SIMT
+    kernel on q, k, v widened to float32, its output rounded to q's
+    dtype."""
+    import torch
+
+    from repro_torch.kernels.attention import flash_attention_cuda
+
+    return flash_attention_cuda(*(t.to(torch.float32) for t in (q, k, v)),
+                                **kw).to(q.dtype)
 
 
 @contextlib.contextmanager
@@ -799,6 +833,62 @@ def sequence_attention(fn):
         yield
     finally:
         ops.flash_attention_cuda = kernel
+
+
+def by_route(counts) -> dict:
+    """K4's launch counts ((dtype, route) -> launches, as the wrapper's
+    ``route_launches`` holds them) as {"dtype/route": launches}."""
+    return {f"{dt}/{route}": n for (dt, route), n in sorted(counts.items())}
+
+
+def check_routes(counts, paths):
+    """Fail unless every K4 launch of the run (``counts``, the wrapper's
+    ``route_launches``) took the kernel of its dtype (``K4_ROUTE``), as
+    the launch that ran reported it, and each serving path's launches by
+    route (``paths``: arch -> ({"dtype/route": n}, launches)) add up to
+    its launch count; returns the run's as {"dtype/route": launches}."""
+    routes = by_route(counts)
+    wrong = {key: n for key, n in routes.items()
+             if K4_ROUTE.get(key.split("/")[0]) != key.split("/")[1]}
+    if wrong:
+        fail(f"K4: launches on the wrong route {wrong} (each dtype must take "
+             f"{K4_ROUTE})")
+    for arch, (path_routes, launches) in paths.items():
+        if sum(path_routes.values()) != launches:
+            fail(f"K4 on the {arch} serving path: {path_routes} by route, "
+                 f"{launches} launches")
+    log(f"K4 launches by route: the whole run {routes}; serving paths "
+        + json.dumps({arch: r for arch, (r, _) in paths.items()}))
+    return routes
+
+
+def check_k4_ptxas(report: str, head_dims) -> dict:
+    """Registers and spilled bytes of each K4 kernel instance from
+    ``-Xptxas -v``'s ``report``, as {"route d": [registers, spill bytes]};
+    fails if any instance spills (the tensor-core kernel's O accumulator
+    alone is 128 registers a thread at d 256)."""
+    routes = {"tc": "tensor_core", "simt": "simt"}
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(tc|simt)"
+                      r"15attn_fwd_kernelILi(\d+)E", line)
+        if m:
+            name = f"{routes[m.group(1)]} d{m.group(2)}"
+            found[name] = [0, 0]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[name][1] = int(m.group(1)) + int(m.group(2))
+    if len(found) != 2 * len(head_dims):
+        fail(f"K4 -Xptxas -v: {sorted(found)} kernel instances, one a route "
+             f"and head dim {head_dims} expected:\n{report}")
+    spills = {n: v[1] for n, v in found.items() if v[1]}
+    if spills:
+        fail(f"K4 -Xptxas -v: spilled bytes {spills}")
+    log("K4 -Xptxas -v, registers a thread, no spill: "
+        + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
+    return found
 
 
 def k4_bound(q, k, *, window):
@@ -865,11 +955,17 @@ def check_k4(k4, dev):
                                               **kw),
                 k4.attention_bhsd_ref(q, k, v, skv_valid=skv_valid, **kw))
         if skv_valid is None and q_scale == 1.0:
-            # the public (B, S, H, D) entry of the model's attention
-            qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
-            compare(what + " via ops.flash_attention",
-                    k4.flash_attention(qs, ks, vs, **kw),
+            # the public entry of the model's attention, on (B, S, H, D)
+            # tensors laid out as the model's: the kernel reads them through
+            # their strides and writes the output in the same layout
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            got = k4.flash_attention(qs, ks, vs, **kw)
+            if not got.is_contiguous():
+                fail(f"K4 {what} via ops.flash_attention: the output is not "
+                     f"laid out (B, S, H, D) (strides {got.stride()})")
+            compare(what + " via ops.flash_attention", got,
                     k4.attention_ref(qs, ks, vs, **kw))
+            del qs, ks, vs, got
         del q, k, v
 
     # the serving prefill shapes, elementwise and in relative L2 against
@@ -913,13 +1009,23 @@ def check_k4(k4, dev):
         q, k, v, causal=True, window=0, softcap=0.0), reps=10)
     library_ms = median_ms(lambda: F.scaled_dot_product_attention(
         q, ke, ve, is_causal=True), reps=10)
+    del ke, ve
+    # the float32 SIMT kernel on the same values: the arithmetic of the
+    # bf16 design that the tensor-core kernel replaced (it widened bf16 to
+    # float32 as it loaded), timed on this card
+    q32, k32, v32 = (t.to(f32) for t in (q, k, v))
+    simt_ms = median_ms(lambda: k4.flash_attention_cuda(q32, k32, v32, **kw),
+                        reps=5)
+    del q32, k32, v32
     bound_ms, bound_by, flops = k4_bound(q, k, window=0)
     log(f"K4 at the prefill shape: {ms:.3f} ms (softcap 0: {nocap_ms:.3f} "
         f"ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-        f"(softcap 0) {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"(softcap 0) {library_ms:.3f} ms, the float32 SIMT kernel "
+        f"{simt_ms:.3f} ms ({simt_ms / ms:.2f}x), bound {bound_ms:.3f} ms "
         f"({bound_by}; {flops / 1e9:.1f} GFLOP, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
-    del q, k, v, ke, ve
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
+        f"{100 * bound_ms / ms:.1f} % of the bound)")
+    del q, k, v
 
     # timing at recurrentgemma's local-attention prefill, as served; the
     # library call takes the window as a boolean mask
@@ -942,7 +1048,8 @@ def check_k4(k4, dev):
         f"{window}: {rg_ms:.3f} ms, plain {rg_plain_ms:.3f} ms, "
         f"scaled_dot_product_attention (window as a mask) "
         f"{rg_library_ms:.3f} ms, bound {rg_bound_ms:.3f} ms ({rg_bound_by}; "
-        f"{rg_flops / 1e9:.1f} GFLOP)")
+        f"{rg_flops / 1e9:.1f} GFLOP, {rg_flops / rg_ms / 1e9:.1f} TFLOP/s "
+        f"achieved, {100 * rg_bound_ms / rg_ms:.1f} % of the bound)")
     del q, k, v, ke, ve, mask
     return {
         "name": "flash_attention",
@@ -958,6 +1065,9 @@ def check_k4(k4, dev):
         "library_ms": library_ms,
         "library": "scaled_dot_product_attention(is_causal=True), softcap 0",
         "ms_softcap0": nocap_ms,
+        "ms_simt_f32": simt_ms,
+        "bound_share": bound_ms / ms,
+        "tflops": flops / ms / 1e9,
         "shape": [b, s, hq, hkv, d],
         "dtype": "bfloat16",
         "softcap": 50.0,
@@ -968,7 +1078,8 @@ def check_k4(k4, dev):
             "plain_ms": rg_plain_ms, "bound_ms": rg_bound_ms,
             "bound_by": rg_bound_by, "library_ms": rg_library_ms,
             "library": "scaled_dot_product_attention(attn_mask=window)",
-            "gflop": rg_flops / 1e9},
+            "bound_share": rg_bound_ms / rg_ms,
+            "tflops": rg_flops / rg_ms / 1e9, "gflop": rg_flops / 1e9},
     }
 
 
@@ -1303,10 +1414,13 @@ def serve_and_check(bundle, params, reqs, counters):
     torch.cuda.reset_peak_memory_stats()
     for wrapper in counters.values():
         wrapper.launches = 0
+    routed = collections.Counter(counters["flash_attention"].route_launches)
     t0 = time.perf_counter()
     outs = engine.serve_queue(reqs, slots=SERVE_SLOTS)
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in counters.items()}
+    routes = by_route(collections.Counter(
+        counters["flash_attention"].route_launches) - routed)
     peak = torch.cuda.max_memory_allocated()
     seconds = {name: list(times) for name, times in calls.items()}
     prefills = -(-len(reqs) // SERVE_SLOTS)
@@ -1353,7 +1467,7 @@ def serve_and_check(bundle, params, reqs, counters):
         "decode_s": sum(seconds["decode"]),
         "decode_step_ms": 1e3 * statistics.median(seconds["decode"]),
         "new_tokens_per_s": tokens.size / wall, "launches": launches,
-        "peak_gib": peak / 2**30,
+        "routes": routes, "peak_gib": peak / 2**30,
     }, prompts, served
 
 
@@ -1408,9 +1522,18 @@ def run_serving_path(kernels, counters, device=None):
                for i in range(0, SERVE_REQUESTS, SERVE_SLOTS)]
     bf16_probs = ("bf16-probability control",
                   lambda: sequence_attention(attention_bf16_probs))
+    # beside them, what other attention arithmetic reads there: the plain
+    # version with K4's split P, and the float32 SIMT kernel on widened
+    # inputs (the replaced bf16 design)
+    attributions = (
+        ("plain version with split P", lambda: sequence_attention(
+            functools.partial(attention_bf16_probs, split=True))),
+        ("widened float32 SIMT kernel",
+         lambda: sequence_attention(attention_widened)))
     bf16_logits = prefill_logits_check(bundle, params, batches, kernels,
                                        bf16_probs, LOGITS_BAND_BF16,
-                                       separates=False)
+                                       separates=False,
+                                       readings=attributions)
     params = params.to(torch.float32)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
@@ -1428,11 +1551,12 @@ def run_serving_path(kernels, counters, device=None):
 
 
 def prefill_logits_check(bundle, params, batches, kernels, control, band,
-                         separates=True):
+                         separates=True, readings=()):
     """Each batch's last-position prefill logits through the kernels
     against the same model through their plain versions (sound), beside
     ``control`` = (name, context factory), the same model under a
-    lower-precision or state-dropping control. Fails when a sound reading
+    lower-precision or state-dropping control, and each of ``readings``
+    (the same pairs), read and logged only. Fails when a sound reading
     passes ``band`` or, where the band ``separates``, when the control does
     not."""
     import torch
@@ -1441,6 +1565,7 @@ def prefill_logits_check(bundle, params, batches, kernels, control, band,
     what = (f"{bundle.cfg.name} {bundle.cfg.param_dtype} "
             f"({bundle.cfg.num_layers} layers) prefill logits")
     sound, controls = [], []
+    read = {name: [] for name, _ in readings}
     for batch in batches:
         batch = {"tokens": batch}
         got = bundle.prefill_fn(params, batch)[0]
@@ -1452,17 +1577,22 @@ def prefill_logits_check(bundle, params, batches, kernels, control, band,
             fail(f"non-finite {what}")
         sound.append(rel_l2(got, plain))
         controls.append(rel_l2(low, plain))
+        for reading, context in readings:
+            with context():
+                read[reading].append(rel_l2(bundle.prefill_fn(params, batch)[0],
+                                            plain))
         agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
         log(f"serving path: {what} through the kernels vs their plain "
             f"versions: relative L2 {sound[-1]:.4g} (band {band:.4g}), argmax "
-            f"agreement {agree:.2f}; the {name} reads {controls[-1]:.4g}")
+            f"agreement {agree:.2f}; the {name} reads {controls[-1]:.4g}"
+            + "".join(f"; the {r} {v[-1]:.4g}" for r, v in read.items()))
     if max(sound) > band:
         fail(f"{what} through the kernels differ from the plain versions' "
              f"by {max(sound)} relative (band {band})")
     if separates and min(controls) <= band:
         fail(f"{what}: the band {band} does not tell the {name} "
              f"({min(controls)}) from the plain versions")
-    return {"rel_l2": sound, "control_rel_l2": controls}
+    return {"rel_l2": sound, "control_rel_l2": controls, "readings": read}
 
 
 # faults of the decode path that the float32 teacher-forced band must
@@ -1882,8 +2012,13 @@ def main() -> int:
     require_hopper(dev)
 
     t0 = time.perf_counter()
-    libs = nvcc.build(*((m.kernel.SOURCE, m.kernel.NVCC_FLAGS)
-                        for m in (kernels, k3, k4, k5, k6)))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # K4's source once more under -Xptxas -v, beside the builds
+        report = pool.submit(nvcc.ptxas_report, k4.kernel.SOURCE,
+                             k4.kernel.NVCC_FLAGS)
+        libs = nvcc.build(*((m.kernel.SOURCE, m.kernel.NVCC_FLAGS)
+                            for m in (kernels, k3, k4, k5, k6)))
+        k4_ptxas = check_k4_ptxas(report.result(), k4.kernel.HEAD_DIMS)
     log(f"build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -1891,6 +2026,7 @@ def main() -> int:
         k1 = check_k1(kernels, dev)
         check_k3(k3, dev)
         k4_record = check_k4(k4, dev)
+        k4_record["ptxas"] = k4_ptxas
         k5_record = check_k5(k5, dev)
         k6_record = check_k6(k6, dev)
     with phase("fleet path and K2"):
@@ -1909,11 +2045,13 @@ def main() -> int:
         serving = run_serving_path((k4, k5, k6), counters)
     log("serving path outcome: " + json.dumps(serving))
     paths = {SERVE_ARCH: serving["launches"]}
+    routes = {SERVE_ARCH: serving["routes"]}
     for arch in STATE_SERVING:
         with phase(f"serving path {arch} with its checks"):
             outcome = run_state_serving_path(arch, (k4, k5, k6), counters)
         log(f"serving path {arch} outcome: " + json.dumps(outcome))
         paths[arch] = outcome["launches"]
+        routes[arch] = outcome["routes"]
     # each kernel's launches on the first serving path that runs it
     k4_record["launches"] = paths[SERVE_ARCH]["flash_attention"]
     k5_record["launches"] = paths["mamba2_1_3b"]["ssd_chunked"]
@@ -1921,6 +2059,10 @@ def main() -> int:
     for record in (k4_record, k5_record, k6_record):
         record["launches_by_path"] = {
             arch: counts[record["name"]] for arch, counts in paths.items()}
+    k4_record["routes"] = check_routes(
+        k4.flash_attention_cuda.route_launches,
+        {arch: (routes[arch], counts["flash_attention"])
+         for arch, counts in paths.items()})
     log(smi)  # again, so that the end of a long log names the card too
     log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k5_record,
                                 k6_record]}))

@@ -2,10 +2,11 @@
 ops.py``.
 
 :func:`flash_attention` takes the model's ``(B, S, H, D)`` layout and
-returns the same. It moves heads ahead of the sequence in one copy and
-pads nothing: unlike the Pallas kernel, K4 masks its own ragged tile, so
-the reference wrapper's block multiples and ``sq_valid``/``skv_valid`` have
-no work here. Dispatch is by the tensors' device: a CUDA tensor launches K4
+returns the same. On the card it copies nothing: K4 reads the tensors
+through their strides (heads ahead of the sequence only by index) and
+writes its output in the same layout, and unlike the Pallas kernel it
+masks its own ragged tile, so the reference wrapper's padding to block
+multiples and ``sq_valid``/``skv_valid`` have no work here. Dispatch is by the tensors' device: a CUDA tensor launches K4
 (:mod:`.kernel`) or raises, a CPU tensor takes the plain version
 (:mod:`.ref`). Nothing falls back from one to the other.
 """
@@ -27,12 +28,13 @@ def flash_attention(
     window: int = 0,
     softcap: float = 0.0,
 ) -> torch.Tensor:
-    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cuda":
-        out = flash_attention_cuda(q, k, v, **kw)
+        out = flash_attention_cuda(*(t.transpose(1, 2) for t in (q, k, v)),
+                                   **kw)
     elif q.device.type == "cpu":
-        out = attention_bhsd_ref(q, k, v, **kw)
+        out = attention_bhsd_ref(
+            *(t.transpose(1, 2).contiguous() for t in (q, k, v)), **kw)
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return out.transpose(1, 2)

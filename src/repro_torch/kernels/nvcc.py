@@ -79,3 +79,21 @@ def build(*targets: tuple[Path, tuple[str, ...]]) -> list[Path]:
 def load(source: Path, flags: tuple[str, ...]) -> ctypes.CDLL:
     """Build ``source`` if needed and load its library."""
     return ctypes.CDLL(str(build((source, flags))[0]))
+
+
+def ptxas_report(source: Path, flags: tuple[str, ...]) -> str:
+    """What ptxas says of each kernel of ``source`` built with ``flags``:
+    registers, shared memory and spills. The source is compiled once more
+    with ``-Xptxas -v`` into a scratch library, which is then removed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"ptxas_report.{os.getpid()}.so"
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", str(tmp), str(source)]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}")
+    return proc.stdout

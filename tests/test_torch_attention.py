@@ -6,9 +6,13 @@ side runs the Pallas kernel in interpret mode (its default off a TPU) and
 its pure-jnp oracle; the port's ``kernels.attention.ops.flash_attention``
 takes its plain version on a CPU tensor. The tolerances are the
 reference's own (``tests/test_kernels.py``): 2e-5 in float32, 2e-2 in
-bfloat16. The CUDA kernel itself is checked on the card by
-``chip_smoke.py``.
+bfloat16. The CUDA kernels themselves are checked on the card by
+``chip_smoke.py``; here the bfloat16 kernel's arithmetic (split
+probabilities on the tensor cores) is emulated in plain torch and held to
+the bands ``chip_smoke.py`` holds the kernel to.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,7 @@ from repro.models import attention as jax_attn
 from repro_torch.kernels.attention import (
     attention_bhsd_ref, attention_ref, flash_attention, flash_attention_cuda,
 )
+from repro_torch.kernels.attention import kernel as k4_kernel
 from repro_torch.models import attention as port_attn
 
 # the reference's five kernel cases (tests/test_kernels.py:25-29)
@@ -137,3 +142,126 @@ def test_cpu_tensors_take_the_plain_version_not_the_kernel():
         flash_attention_cuda(*(t.transpose(1, 2).contiguous()
                                for t in (tq, tk, tv)))
     assert flash_attention_cuda.launches == before
+
+
+def test_cpu_tensors_launch_no_route():
+    _, (tq, tk, tv) = _both(_qkv(7, 1, 16, 16, 2, 1, 16), jnp.bfloat16,
+                            torch.bfloat16)
+    before = dict(flash_attention_cuda.route_launches)
+    flash_attention(tq, tk, tv, causal=True)
+    assert dict(flash_attention_cuda.route_launches) == before
+
+
+def test_kernel_strides_read_the_model_layout_in_place():
+    """The kernels take (B, H, S, D) by index through element strides: a
+    transposed view of the model's (B, S, H, D) tensor passes as it lies;
+    a last dimension that is not contiguous, or rows off a 16-byte
+    boundary, are refused."""
+    x = torch.zeros(2, 40, 4, 32, dtype=torch.bfloat16)   # (B, S, H, D)
+    assert k4_kernel.strides(x.transpose(1, 2)) == (40 * 4 * 32, 32, 4 * 32)
+    assert k4_kernel.strides(x.transpose(1, 2).contiguous()) == (
+        4 * 40 * 32, 40 * 32, 32)
+    with pytest.raises(ValueError, match="last dimension is contiguous"):
+        k4_kernel.strides(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k4_kernel.strides(x[..., 1:17])
+    y = torch.zeros(2, 40, 4, 36, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k4_kernel.strides(y.transpose(1, 2))   # 72-byte rows
+
+
+# -------------------------------------------------- the bf16 kernel's numerics
+
+# K4's bands on the card (chip_smoke.py K4_TOL["bfloat16"], K4_REL_L2)
+K4_BF16_TOL = (1e-5, 2.0 ** -7)
+K4_REL_L2 = 3e-4
+# the reference's five cases and q x 8, whose scores reach the softcap's
+# bend, at gemma2's head dim
+SPLIT_CASES = [(*c, 1.0) for c in CASES] + [
+    (1, 256, 256, 4, 2, 256, True, 128, 50.0, 8.0)]
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, causal, window, softcap,
+                                split=True, step=32):
+    """The bfloat16 tensor-core kernel's arithmetic in plain torch, (B, H,
+    S, D): S from the unscaled bf16 q and k in float32, then scaled by
+    1/sqrt(d); the softcap as c tanh(s (1/c)); the masks; the online softmax
+    over ``step`` keys at a time; P split into bf16 hi = bf16(p) and lo =
+    bf16(p - hi), each multiplied by V in float32 and both added
+    (``split=False``: hi alone, a kernel that feeds bf16 P to the tensor
+    cores)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    kf, vf = k.float(), v.float()
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    m = torch.full((b, hkv, hq // hkv, sq), -2e38)
+    l = torch.zeros(b, hkv, hq // hkv, sq)
+    acc = torch.zeros(b, hkv, hq // hkv, sq, d)
+    qi = torch.arange(sq)[:, None]
+    for lo in range(0, skv, step):
+        kb, vb = kf[:, :, lo:lo + step], vf[:, :, lo:lo + step]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s * torch.tensor(1.0 / softcap))
+        ki = lo + torch.arange(kb.shape[2])[None, :]
+        mask = torch.ones(sq, kb.shape[2], dtype=torch.bool)
+        if causal:
+            mask &= qi >= ki
+        if window > 0:
+            mask &= qi - ki < window
+        s = torch.where(mask, s, torch.tensor(-2e38))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bhgqk,bhkd->bhgqd", hi, vb)
+        if split:
+            lo_ = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bhgqk,bhkd->bhgqd", lo_, vb)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-37)[..., None]
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _rel_l2(got, want):
+    got, want = _np(got), _np(want)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _split_case(case):
+    b, sq, skv, hq, hkv, d, causal, window, cap, q_scale = case
+    q, k, v = _qkv(0, b, sq, skv, hq, hkv, d)
+    (jq, jk, jv), (tq, tk, tv) = _both((q * q_scale, k, v), jnp.bfloat16,
+                                       torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    bhsd = [t.transpose(1, 2) for t in (tq, tk, tv)]
+    want = attention_bhsd_ref(*bhsd, **kw)
+    pallas = torch.from_numpy(_np(jax_flash_attention(
+        jq, jk, jv, block_q=64, block_kv=64, **kw))).transpose(1, 2)
+    return bhsd, kw, want, pallas
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_probabilities_hold_k4_bands(case):
+    """Split P holds K4's bfloat16 bands against the plain version and the
+    Pallas kernel: one unit in the last place elementwise, relative L2
+    below 3e-4."""
+    bhsd, kw, want, pallas = _split_case(case)
+    got = _emulate_tensor_core_kernel(*bhsd, **kw)
+    assert got.dtype == torch.bfloat16
+    atol, rtol = K4_BF16_TOL
+    for ref in (want, pallas):
+        np.testing.assert_allclose(_np(got), _np(ref), atol=atol, rtol=rtol)
+        assert _rel_l2(got, ref) < K4_REL_L2
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_bf16_probabilities_miss_the_band(case):
+    """The control: bf16 P alone reads above K4_REL_L2 on the same inputs,
+    so the band tells the two designs apart."""
+    bhsd, kw, want, _ = _split_case(case)
+    control = _emulate_tensor_core_kernel(*bhsd, **kw, split=False)
+    assert _rel_l2(control, want) > K4_REL_L2
