@@ -9,8 +9,9 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 1. the card's name and power limit (``nvidia-smi``), torch version, and
    compute capability, which must be 9.0;
 2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
-   ``nvcc`` for each source, all started together, and K4's source once
-   more beside them under ``-Xptxas -v``: no K4 instance may spill;
+   ``nvcc`` for each source, all started together, and K4's and K5's
+   sources once more beside them under ``-Xptxas -v``: no K4 or K5
+   instance may spill;
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
    version, index-exact, at the fleet path's shape and on edge cases;
 4. K3 (device checksum) on the card against its plain version, exact,
@@ -35,12 +36,19 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    float32 SIMT kernel's: the arithmetic of the bf16 design it replaced;
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
-   state (also through the public ``ops.ssd_mixer``), a ragged sequence,
-   and the mamba2 serving shape (B 4, H 64, S 4600, P 64, N 128, chunk
-   64) with long-memory inputs in float32 and bfloat16; elementwise at
-   the reference's 1e-4 and within a relative-L2 band that a control
-   dropping the state entering each chunk must fall outside; its time
-   there against its plain version's;
+   state (also through the public ``ops.ssd_mixer``) and a ragged
+   sequence, each in float32 (the SIMT kernel) and bfloat16 (the tensor
+   cores), and the mamba2 serving shape (B 4, H 64, S 4600, P 64, N 128,
+   chunk 64) with long-memory inputs in both, and one sequence of it in
+   bfloat16 from an initial state; elementwise at the reference's 1e-4
+   (the worst element's share of it logged) and within a relative-L2
+   band that a control dropping the state entering each chunk, and in
+   bfloat16 one feeding the tensor cores unsplit float32 operands, must
+   fall outside; for the one sequence, the route's arithmetic in plain
+   torch and a float64 plain version read beside it; its time at the
+   serving shape against the float32 SIMT kernel's on the same inputs
+   widened (the design that the tensor-core route replaced) and the plain
+   version's;
 7. K6 (RG-LRU scan) on the card against its plain version, bit for bit:
    the reference's four cases, a ragged sequence and width, and the
    recurrentgemma serving shape (B 4, S 4608, W 2560) with long-memory
@@ -88,17 +96,21 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     window), at full width from seed 14 with the decay parameters redrawn
     from the published init ranges, each through ``build_model`` and
     ``ServeEngine.serve_queue`` as in phase 11: launches (K5 96; K6 36 and
-    K4 16), the same tokens twice, the replayed decode; on the weights
-    cast to float32, the prefill logits through the kernels against their
-    plain versions and the teacher-forced decode (the recurrent step after
-    K5's or K6's hand-off) against the forward pass, each within a band
-    that its controls (state dropped between chunks or blocks; state
-    zeroed or conv tail dropped at the hand-off) must fall outside;
-13. K4's route check: every bfloat16 launch of the whole run must have
-    taken the tensor-core kernel and every float32 launch the SIMT one,
-    as the launch that ran reports its route (the wrapper counts launches
-    by dtype and route), and each serving path's launches by route must
-    add up to its count;
+    K4 16), the same tokens twice, the replayed decode; mamba2's bfloat16
+    prefill as served, its logits and its first ssd block through K5
+    against the plain version, each within a band from chip readings that
+    the no-carry and unsplit-operand controls must fall outside; on the
+    weights cast to float32, the prefill logits
+    through the kernels against their plain versions and the
+    teacher-forced decode (the recurrent step after K5's or K6's hand-off)
+    against the forward pass, each within a band that its controls (state
+    dropped between chunks or blocks; state zeroed or conv tail dropped at
+    the hand-off) must fall outside;
+13. K4's and K5's route checks: every bfloat16 launch of the whole run
+    must have taken the tensor-core route and every float32 launch the
+    SIMT one, as the launch that ran reports its route (each wrapper
+    counts launches by dtype and route), and each serving path's launches
+    by route must add up to its count;
 14. one JSON line of per-kernel numbers, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +129,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import re
 import statistics
@@ -182,8 +195,8 @@ K4_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # teacher-forced decode against the forward pass (4.5e-6 / 3.0e-4 with the
 # int8 KV cache).
 K4_REL_L2 = 3e-4
-# the kernel that K4 must launch for each dtype
-K4_ROUTE = {"bfloat16": "tensor_core", "float32": "simt"}
+# the kernel that K4 and K5 must launch for each dtype
+DTYPE_ROUTE = {"bfloat16": "tensor_core", "float32": "simt"}
 LOGITS_BAND_F32 = 5e-5
 LOGITS_BAND_BF16 = 8.5e-3
 DECODE_BAND_F32 = 4e-5
@@ -235,12 +248,18 @@ KERNEL_OF_KIND = {"attn": "flash_attention", "local_attn": "flash_attention",
 # to 230 (5e-8 after the first reads 0.34 after the last; the decode reads
 # 8.5e-3 at 8 layers), and a window one key too wide or the new row unseen
 # leave the decode exactly as it was; the layer-by-layer check holds every
-# block at full depth
+# block at full depth. mamba2's bfloat16 prefill as served, through K5's
+# tensor-core route against the plain version, each band near the
+# geometric mean of the H100 reading and its nearest control: the logits
+# (``bf16_logits_band``) 1.8e-2 / unsplit operands 3.6e-2, no-carry 4.0e-2;
+# the first ssd block (``bf16_block_band``) 0 (no element's bf16 rounding
+# moved; 6.2e-6 with two-term operands) / unsplit 1.8e-4, no-carry 6.7e-4
 STATE_SEED = 14
 STATE_SERVING = {
     "mamba2_1_3b": dict(
         prompt=4600, layers=48, logits_band=4e-5, decode_band=4e-5,
-        decode_faults=(), layer_bands={"ssd": (1.5e-5, 3e-5)}),
+        decode_faults=(), layer_bands={"ssd": (1.5e-5, 3e-5)},
+        bf16_logits_band=2.6e-2, bf16_block_band=3e-5),
     "recurrentgemma_2b": dict(
         prompt=4608, layers=5, logits_band=2e-4, decode_band=1e-2,
         decode_faults=("window dropped",),
@@ -757,6 +776,13 @@ def live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
+def tolerance_share(got, want, atol=1e-4, rtol=1e-4) -> float:
+    """The largest |got - want| / (atol + rtol |want|) over the elements:
+    how much of ``torch.isclose``'s allowance the worst one takes (above 1
+    it falls outside)."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def rel_l2(got, want) -> float:
     """||got - want|| / ||want|| in float32."""
     import torch
@@ -836,28 +862,29 @@ def sequence_attention(fn):
 
 
 def by_route(counts) -> dict:
-    """K4's launch counts ((dtype, route) -> launches, as the wrapper's
-    ``route_launches`` holds them) as {"dtype/route": launches}."""
+    """A kernel's launch counts ((dtype, route) -> launches, as the
+    wrapper's ``route_launches`` holds them) as {"dtype/route": launches}."""
     return {f"{dt}/{route}": n for (dt, route), n in sorted(counts.items())}
 
 
-def check_routes(counts, paths):
-    """Fail unless every K4 launch of the run (``counts``, the wrapper's
-    ``route_launches``) took the kernel of its dtype (``K4_ROUTE``), as
-    the launch that ran reported it, and each serving path's launches by
-    route (``paths``: arch -> ({"dtype/route": n}, launches)) add up to
-    its launch count; returns the run's as {"dtype/route": launches}."""
+def check_routes(kernel, counts, paths):
+    """Fail unless every launch of ``kernel`` (K4 or K5) in the run
+    (``counts``, the wrapper's ``route_launches``) took the route of its
+    dtype (``DTYPE_ROUTE``), as the launch that ran reported it, and each
+    serving path's launches by route (``paths``: arch -> ({"dtype/route":
+    n}, launches)) add up to its launch count; returns the run's as
+    {"dtype/route": launches}."""
     routes = by_route(counts)
     wrong = {key: n for key, n in routes.items()
-             if K4_ROUTE.get(key.split("/")[0]) != key.split("/")[1]}
+             if DTYPE_ROUTE.get(key.split("/")[0]) != key.split("/")[1]}
     if wrong:
-        fail(f"K4: launches on the wrong route {wrong} (each dtype must take "
-             f"{K4_ROUTE})")
+        fail(f"{kernel}: launches on the wrong route {wrong} (each dtype "
+             f"must take {DTYPE_ROUTE})")
     for arch, (path_routes, launches) in paths.items():
         if sum(path_routes.values()) != launches:
-            fail(f"K4 on the {arch} serving path: {path_routes} by route, "
-                 f"{launches} launches")
-    log(f"K4 launches by route: the whole run {routes}; serving paths "
+            fail(f"{kernel} on the {arch} serving path: {path_routes} by "
+                 f"route, {launches} launches")
+    log(f"{kernel} launches by route: the whole run {routes}; serving paths "
         + json.dumps({arch: r for arch, (r, _) in paths.items()}))
     return routes
 
@@ -887,6 +914,35 @@ def check_k4_ptxas(report: str, head_dims) -> dict:
     if spills:
         fail(f"K4 -Xptxas -v: spilled bytes {spills}")
     log("K4 -Xptxas -v, registers a thread, no spill: "
+        + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
+    return found
+
+
+def check_k5_ptxas(report: str) -> dict:
+    """Registers and spilled bytes of each K5 kernel from ``-Xptxas -v``'s
+    ``report``: the SIMT kernel and the tensor-core route's, as
+    {"kernel": [registers, spill bytes]}; fails if either spills (the
+    tensor-core kernel holds 64 float32 of h a thread)."""
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            name = ("tensor_core" if "tc12chunk_kernel" in entry else
+                    "simt" if "simt16ssd_chunk_kernel" in entry else entry)
+            found[name] = [0, 0]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[name][1] = int(m.group(1)) + int(m.group(2))
+    if sorted(found) != ["simt", "tensor_core"]:
+        fail(f"K5 -Xptxas -v: kernels {sorted(found)}, the SIMT and the "
+             f"tensor-core kernel expected:\n{report}")
+    spills = {n: v[1] for n, v in found.items() if v[1]}
+    if spills:
+        fail(f"K5 -Xptxas -v: spilled bytes {spills}")
+    log("K5 -Xptxas -v, registers a thread, no spill: "
         + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
     return found
 
@@ -1204,18 +1260,26 @@ def ssd_flops(b, h, s, p, n, chunk) -> tuple[int, int]:
 
 def check_k5(k5, dev):
     """K5 vs its plain version on the card, y and h_last: the reference's
-    three cases (also through the public ``ops.ssd_mixer``), a ragged
-    sequence with an initial state, and the mamba2 serving shape with
-    long-memory inputs in float32 and bfloat16. Each comparison is
-    elementwise (the reference's 1e-4) and in relative L2 against
-    ``K5_REL_L2``, which the no-carry control must fall outside; returns the
-    kernel's record."""
+    three cases (also through the public ``ops.ssd_mixer``) and a ragged
+    sequence with an initial state, each in float32 (the SIMT kernel) and
+    bfloat16 (the tensor cores), and the mamba2 serving shape with
+    long-memory inputs in both, and one sequence of it in bfloat16 with an
+    initial state. Each comparison is elementwise (the reference's 1e-4,
+    its worst element's share of that allowance logged) and in relative L2
+    against ``K5_REL_L2``, which the no-carry control and, in bfloat16,
+    the unsplit-operand control must fall outside. For the one sequence,
+    logged only: the route's arithmetic in plain torch on the card
+    (``ssd_chunked_split_ref``) and the plain version in float64, beside
+    which the kernel, the emulation and the plain float32 version read.
+    Then the serving shape's times: the tensor-core route, the float32
+    SIMT kernel on the same inputs widened (the design it replaced), the
+    plain version, and one sequence; returns the kernel's record."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
     worst = 0.0
-    readings = []
+    readings = {"float32": [], "bfloat16": []}
 
     def inputs(b, h, s, p, n, dt_range, a_range, dtype, with_h0):
         def u(shape, lo, hi):
@@ -1231,78 +1295,135 @@ def check_k5(k5, dev):
               if with_h0 else None)
         return x, dt, a_neg, bm, cm, h0
 
-    def compare(what, got, want, control):
+    def compare(what, got, want, controls, dtype):
         nonlocal worst
         torch.cuda.synchronize()
-        for part, g, w, c in zip(("y", "h_last"), got, want, control):
+        for i, (part, g, w) in enumerate(zip(("y", "h_last"), got, want)):
             err = float((g - w).abs().max())
             bad = ~torch.isclose(g, w, atol=1e-4, rtol=1e-4)
             if not torch.isfinite(g).all() or bool(bad.any()):
                 fail(f"K5 {what} {part}: {int(bad.sum())} values outside "
                      f"1e-4 of the plain version (max |diff| {err})")
-            rel, ctrl = rel_l2(g, w), rel_l2(c, w)
-            readings.append((rel, ctrl))
+            share = tolerance_share(g, w)
+            rel = rel_l2(g, w)
+            ctrl = {name: rel_l2(c[i], w) for name, c in controls.items()}
+            readings[dtype].append((rel, share, ctrl))
             worst = max(worst, err)
-            log(f"K5 {what} {part}: max |diff| {err:.3g} within 1e-4; "
-                f"relative L2 {rel:.4g} (band {K5_REL_L2:.4g}); the no-carry "
-                f"control reads {ctrl:.4g}")
+            log(f"K5 {what} {part}: max |diff| {err:.3g} within 1e-4, the "
+                f"worst element at {share:.3f} of 1e-4 + 1e-4|want|; "
+                f"relative L2 {rel:.4g} (band {K5_REL_L2:.4g}); "
+                + "; ".join(f"the {name} control reads {v:.4g}"
+                            for name, v in ctrl.items()))
             if rel > K5_REL_L2:
                 fail(f"K5 {what} {part}: relative L2 {rel} above {K5_REL_L2}")
-            if ctrl <= K5_REL_L2:
-                fail(f"K5 {what} {part}: the band {K5_REL_L2} does not tell "
-                     f"the no-carry control ({ctrl}) from the kernel")
+            for name, v in ctrl.items():
+                if v <= K5_REL_L2:
+                    fail(f"K5 {what} {part}: the band {K5_REL_L2} does not "
+                         f"tell the {name} control ({v}) from the kernel")
 
-    for (b, h, s, p, n, q), with_h0 in K5_CASES:
-        x, dt, a_neg, bm, cm, h0 = inputs(b, h, s, p, n, (0.01, 0.2),
-                                          (0.5, 2.0), f32, with_h0)
-        what = (f"(B, H, S, P, N) = {(b, h, s, p, n)} chunk {q} float32 "
-                f"h0={with_h0}")
+    def check(what, x, dt, a_neg, bm, cm, q, h0):
         got = k5.ssd_chunked_cuda(x.transpose(1, 2), dt.transpose(1, 2),
                                   a_neg, bm, cm, chunk=q, h0=h0)
         want = k5.ssd_chunked_ref(x, dt, a_neg, bm, cm, q, h0)
-        control = ssd_without_carry(k5, x, dt, a_neg, bm, cm, q)
-        compare(what, (got[0].transpose(1, 2), got[1]), want, control)
+        controls = {"no-carry": ssd_without_carry(k5, x, dt, a_neg, bm, cm,
+                                                  q)}
+        dtype = str(x.dtype).removeprefix("torch.")
+        if x.dtype == bf16:  # each float32 operand as one bf16 term
+            controls["unsplit-operand"] = k5.ssd_chunked_split_ref(
+                x, dt, a_neg, bm, cm, q, h0, terms=(1, 1, 1))
+        compare(what, (got[0].transpose(1, 2), got[1]), want, controls,
+                dtype)
+        return got
+
+    for ((b, h, s, p, n, q), with_h0), dtype in itertools.product(
+            K5_CASES, (f32, bf16)):
+        x, dt, a_neg, bm, cm, h0 = inputs(b, h, s, p, n, (0.01, 0.2),
+                                          (0.5, 2.0), dtype, with_h0)
+        what = (f"(B, H, S, P, N) = {(b, h, s, p, n)} chunk {q} "
+                f"{str(dtype)[6:]} h0={with_h0}")
+        got = check(what, x, dt, a_neg, bm, cm, q, h0)
         if not with_h0:
             xb, dtb = x.transpose(1, 2).contiguous(), dt.transpose(1, 2)
             mixed = k5.ssd_mixer(xb, dtb.contiguous(), a_neg, bm, cm, chunk=q)
-            if not torch.equal(mixed, got[0]):
+            if not torch.equal(mixed, got[0].to(dtype)):
                 fail(f"K5 {what}: ops.ssd_mixer differs from the kernel")
-        del x, dt, bm, cm, h0, got, want, control
+        del x, dt, bm, cm, h0, got
 
     b, h, s, p, n, q = K5_SERVING
-    for dtype, with_h0 in ((f32, True), (torch.bfloat16, False)):
+    for dtype, with_h0 in ((f32, True), (bf16, False)):
         x, dt, a_neg, bm, cm, h0 = inputs(b, h, s, p, n, K5_DT_LONG,
                                           K5_A_LONG, dtype, with_h0)
         what = (f"serving shape {(b, h, s, p, n)} chunk {q} "
                 f"{str(dtype)[6:]} h0={with_h0}, long memory")
-        got = k5.ssd_chunked_cuda(x.transpose(1, 2), dt.transpose(1, 2),
-                                  a_neg, bm, cm, chunk=q, h0=h0)
-        want = k5.ssd_chunked_ref(x, dt, a_neg, bm, cm, q, h0)
-        control = ssd_without_carry(k5, x, dt, a_neg, bm, cm, q)
-        compare(what, (got[0].transpose(1, 2), got[1]), want, control)
-        del got, want, control
+        check(what, x, dt, a_neg, bm, cm, q, h0)
+        torch.cuda.empty_cache()
 
     # timing at the serving shape in bfloat16, as the model hands it over:
-    # heads ahead of the sequence by strides, no h0
+    # heads ahead of the sequence by strides, no h0; beside it the float32
+    # SIMT kernel on the same inputs widened (the bf16 design it replaced)
     xs, dts = x.transpose(1, 2), dt.transpose(1, 2)
     ms = median_ms(lambda: k5.ssd_chunked_cuda(xs, dts, a_neg, bm, cm,
                                                chunk=q), reps=10)
+    xw, bw, cw = xs.to(f32), bm.to(f32), cm.to(f32)
+    replaced_ms = median_ms(lambda: k5.ssd_chunked_cuda(xw, dts, a_neg, bw,
+                                                        cw, chunk=q), reps=5)
+    del xw, bw, cw
     plain_ms = median_ms(lambda: k5.ssd_chunked_ref(x, dt, a_neg, bm, cm, q),
                          reps=3)
     cb_flops, rest_flops = ssd_flops(b, h, s, p, n, q)
     flops = cb_flops + rest_flops
     # x, B, C (bf16) and dt, a (float32) read once; y and h_last (float32)
-    # written once. C Bᵀ multiplies bf16 operands, whose products the bf16
-    # tensor cores form exactly (float32 sums): priced at their rate; the
-    # other products take a float32 operand (scores, x·dt, the state), at
-    # the float32 rate (TF32 would break the 1e-4 contract)
+    # written once. Every product has one bf16 operand, and the route forms
+    # them all on the bf16 tensor cores (the float32 operand split in bf16
+    # terms, whose further passes are not counted, as K4's split P's are
+    # not). C Bᵀ is counted once a head, as the kernel forms it. Beside it,
+    # the bound as PRs 14-15 priced it: the products with a float32 operand
+    # at the float32 rate outside the tensor cores
     nbytes = (2 * (x.numel() + bm.numel() + cm.numel())
               + 4 * (dt.numel() + a_neg.numel())
               + 4 * (x.numel() + b * h * p * n))
-    bound_ms, bound_by = bound(nbytes, rest_flops, tensor_ops=cb_flops)
-    log(f"K5 at the serving shape: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
-        f"{flops / ms / 1e9:.2f} TFLOP/s achieved)")
+    bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
+    simt_priced_ms, _ = bound(nbytes, rest_flops, tensor_ops=cb_flops)
+    log(f"K5 at the serving shape: tensor cores {ms:.3f} ms, the replaced "
+        f"SIMT kernel on widened inputs {replaced_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s and {nbytes / ms / 1e6:.1f} GB/s "
+        f"achieved; priced as before, {simt_priced_ms:.3f} ms)")
+
+    # One sequence of the serving shape with an initial state, held as the
+    # cases above. Where its worst elements come from, logged only: the
+    # route's arithmetic in plain torch on the card, and each of the
+    # kernel, that emulation and the plain version against the plain
+    # version in float64
+    x1, dt1, a1, bm1, cm1, h01 = inputs(1, h, s, p, n, K5_DT_LONG, K5_A_LONG,
+                                        bf16, True)
+    args1 = (x1, dt1, a1, bm1, cm1, q, h01)
+    got1 = check(f"serving shape, one sequence {(1, h, s, p, n)} chunk {q} "
+                 f"bfloat16 h0=True, long memory", *args1)
+    got1 = (got1[0].transpose(1, 2), got1[1])
+    want1 = k5.ssd_chunked_ref(*args1)
+    emulated1 = k5.ssd_chunked_split_ref(*args1)
+    exact1 = k5.ssd_chunked_ref(*args1, dtype=torch.float64)
+    one_sequence = {
+        f"{name} y": tolerance_share(g[0], w[0])
+        for name, g, w in (("kernel vs emulation", got1, emulated1),
+                           ("emulation vs plain", emulated1, want1),
+                           ("kernel vs float64", got1, exact1),
+                           ("emulation vs float64", emulated1, exact1),
+                           ("plain vs float64", want1, exact1))}
+    log("K5 one sequence, share of 1e-4 + 1e-4|want| taken by the worst y "
+        "element (read only): " + "; ".join(
+            f"{name} {v:.3f}" for name, v in one_sequence.items()))
+    del got1, want1, emulated1, exact1
+    one_ms = median_ms(lambda: k5.ssd_chunked_cuda(
+        x1.transpose(1, 2), dt1.transpose(1, 2), a1, bm1, cm1, chunk=q),
+        reps=10)
+    log(f"K5 at one sequence of the serving shape: {one_ms:.3f} ms")
+    rel = {dt_: max(r for r, _, _ in rs) for dt_, rs in readings.items()}
+    share = {dt_: max(v for _, v, _ in rs) for dt_, rs in readings.items()}
+    ctrl = {f"{dt_} {name}": min(c[name] for _, _, c in rs)
+            for dt_, rs in readings.items() for name in rs[0][2]}
     return {
         "name": "ssd_chunked",
         "route": "cuda",
@@ -1315,13 +1436,17 @@ def check_k5(k5, dev):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "replaced_simt_ms": replaced_ms,
+        "one_sequence_ms": one_ms,
         "shape": [b, h, s, p, n],
         "chunk": q,
         "dtype": "bfloat16 x, B, C; float32 dt",
         "gflop": flops / 1e9,
-        "gflop_bf16_tensor": cb_flops / 1e9,
-        "rel_l2_max": max(r for r, _ in readings),
-        "control_rel_l2_min": min(c for _, c in readings),
+        "mbytes": nbytes / 1e6,
+        "rel_l2_max": rel,
+        "tolerance_share_max": share,
+        "one_sequence_tolerance_share": one_sequence,
+        "control_rel_l2_min": ctrl,
     }
 
 
@@ -1414,13 +1539,15 @@ def serve_and_check(bundle, params, reqs, counters):
     torch.cuda.reset_peak_memory_stats()
     for wrapper in counters.values():
         wrapper.launches = 0
-    routed = collections.Counter(counters["flash_attention"].route_launches)
+    routed = {name: collections.Counter(w.route_launches)
+              for name, w in counters.items() if hasattr(w, "route_launches")}
     t0 = time.perf_counter()
     outs = engine.serve_queue(reqs, slots=SERVE_SLOTS)
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in counters.items()}
-    routes = by_route(collections.Counter(
-        counters["flash_attention"].route_launches) - routed)
+    routes = {name: by_route(collections.Counter(
+        counters[name].route_launches) - before)
+        for name, before in routed.items()}
     peak = torch.cuda.max_memory_allocated()
     seconds = {name: list(times) for name, times in calls.items()}
     prefills = -(-len(reqs) // SERVE_SLOTS)
@@ -1713,6 +1840,96 @@ def plain_kernels(k4, k5, k6, carry=True):
         yield
 
 
+@contextlib.contextmanager
+def emulated_ssd(k5, terms):
+    """Run the models' K5 calls through K5's tensor-core arithmetic in
+    plain torch (``ssd_chunked_split_ref``) with ``terms`` bf16 terms of
+    its float32 operands: ``SPLIT_TERMS`` the kernel's own, ``(1, 1, 1)``
+    the unsplit-operand control (the dispatch in ``kernels/ssd/ops.py``
+    calls the swapped name for CUDA tensors)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    def ssd(x, dt, a_neg, bmat, cmat, *, chunk, h0=None):
+        y, h = k5.ssd_chunked_split_ref(x.transpose(1, 2), dt.transpose(1, 2),
+                                        a_neg, bmat, cmat, chunk, h0,
+                                        terms=terms)
+        return y.transpose(1, 2), h
+
+    with swapped(ssd_ops, "ssd_chunked_cuda", ssd):
+        yield
+
+
+def ssd_bf16_checks(bundle, params, prompts, kernels, logits_band,
+                    block_band):
+    """mamba2's served bfloat16 prefill through K5 against the same weights
+    through the plain versions: the last-position logits end to end within
+    the relative-L2 ``logits_band``, and the first ssd block's contribution
+    (output minus input, fed the input that the forward through the plain
+    versions gives it) within ``block_band``; the no-carry and
+    unsplit-operand controls must fall outside each. Both also read, logged
+    only, the kernel's arithmetic in plain torch (where its reading comes
+    from)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import default_positions
+
+    cfg, dev = bundle.cfg, bundle.device
+    controls = (
+        ("no-carry control", lambda: plain_kernels(*kernels, carry=False)),
+        ("unsplit-operand control",
+         lambda: emulated_ssd(kernels[1], (1, 1, 1))),
+        ("split-operand emulation", lambda: emulated_ssd(
+            kernels[1], kernels[1].ref.SPLIT_TERMS)))
+
+    def held(what, readings, band):
+        log(f"serving path: {cfg.name} {cfg.param_dtype} {what} vs the plain "
+            f"version: relative L2 (band {band:.4g}) " + "; ".join(
+                f"{name} {v:.4g}" for name, v in readings.items()))
+        if not readings["kernels"] <= band:
+            fail(f"{cfg.name} {what}: relative L2 {readings['kernels']} "
+                 f"above {band}")
+        for name in ("no-carry control", "unsplit-operand control"):
+            if readings[name] <= band:
+                fail(f"{cfg.name} {what}: the band {band} does not tell the "
+                     f"{name} ({readings[name]}) from the plain version")
+        return readings
+
+    batch = {"tokens": prompts}
+    with plain_kernels(*kernels):
+        plain = bundle.prefill_fn(params, batch)[0]
+    got = bundle.prefill_fn(params, batch)[0]
+    if not torch.isfinite(got).all():
+        fail(f"non-finite {cfg.name} {cfg.param_dtype} prefill logits")
+    logits = {"kernels": rel_l2(got, plain)}
+    for name, context in controls:
+        with context():
+            logits[name] = rel_l2(bundle.prefill_fn(params, batch)[0], plain)
+    del plain, got
+    held("prefill logits through K5", logits, logits_band)
+
+    record = []
+    with plain_kernels(*kernels), recorded_blocks(record):
+        bundle.prefill_fn(params, batch)
+    at = layer_kinds(cfg).index("ssd")
+    x = record[at][0]
+    del record
+    kind, layer, _ = list(tf.layers_in_order(params, cfg))[at]
+    positions = default_positions(cfg, x.shape[0], x.shape[1], device=dev)
+
+    def contribution(context):
+        with context():
+            out, _ = tf.block_apply_seq(layer, x, positions, cfg, kind)
+        return out.to(torch.float32) - x.to(torch.float32)
+
+    want = contribution(lambda: plain_kernels(*kernels))
+    block = {"kernels": rel_l2(contribution(contextlib.nullcontext), want)}
+    for name, context in controls:
+        block[name] = rel_l2(contribution(context), want)
+    held(f"ssd block {at} through K5", block, block_band)
+    return {"logits_rel_l2": logits, "block": {"layer": at, "rel_l2": block}}
+
+
 def redraw_decays(params, cfg, gen):
     """The one cut from the reference's init rule: the decay parameters,
     whose init (a_log = dt_bias = 0, lam = 1) makes both recurrences forget
@@ -1944,6 +2161,9 @@ def run_state_serving_path(arch, kernels, counters, device=None):
                              (SERVE_REQUESTS, spec["prompt"]))
                 .astype(np.int32))
     numbers, prompts, served = serve_and_check(bundle, params, reqs, counters)
+    bf16 = ({"prefill_bf16": ssd_bf16_checks(
+        bundle, params, prompts, kernels, spec["bf16_logits_band"],
+        spec["bf16_block_band"])} if "bf16_block_band" in spec else {})
 
     params = params.to(torch.float32)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
@@ -1962,7 +2182,7 @@ def run_state_serving_path(arch, kernels, counters, device=None):
          "conv tail dropped at hand-off": (cut, drop_conv_tail),
          **{name: (cut, None, lambda f=DECODE_FAULTS[name]: decode_fault(f))
             for name in spec["decode_faults"]}})
-    outcome = {**numbers, **built, "prompt": spec["prompt"],
+    outcome = {**numbers, **built, **bf16, "prompt": spec["prompt"],
                "end_to_end_layers": spec["layers"],
                "prefill_logits_f32": logits, "decode_f32": decode}
     if "flash_attention" in (KERNEL_OF_KIND[k] for k in layer_kinds(cfg)):
@@ -2012,13 +2232,15 @@ def main() -> int:
     require_hopper(dev)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # K4's source once more under -Xptxas -v, beside the builds
-        report = pool.submit(nvcc.ptxas_report, k4.kernel.SOURCE,
-                             k4.kernel.NVCC_FLAGS)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        # K4's and K5's sources once more under -Xptxas -v, beside the
+        # builds
+        reports = [pool.submit(nvcc.ptxas_report, m.kernel.SOURCE,
+                               m.kernel.NVCC_FLAGS) for m in (k4, k5)]
         libs = nvcc.build(*((m.kernel.SOURCE, m.kernel.NVCC_FLAGS)
                             for m in (kernels, k3, k4, k5, k6)))
-        k4_ptxas = check_k4_ptxas(report.result(), k4.kernel.HEAD_DIMS)
+        k4_ptxas = check_k4_ptxas(reports[0].result(), k4.kernel.HEAD_DIMS)
+        k5_ptxas = check_k5_ptxas(reports[1].result())
     log(f"build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -2028,6 +2250,7 @@ def main() -> int:
         k4_record = check_k4(k4, dev)
         k4_record["ptxas"] = k4_ptxas
         k5_record = check_k5(k5, dev)
+        k5_record["ptxas"] = k5_ptxas
         k6_record = check_k6(k6, dev)
     with phase("fleet path and K2"):
         launches, tables, outcome = run_main_path(kernels)
@@ -2059,10 +2282,12 @@ def main() -> int:
     for record in (k4_record, k5_record, k6_record):
         record["launches_by_path"] = {
             arch: counts[record["name"]] for arch, counts in paths.items()}
-    k4_record["routes"] = check_routes(
-        k4.flash_attention_cuda.route_launches,
-        {arch: (routes[arch], counts["flash_attention"])
-         for arch, counts in paths.items()})
+    for record, wrapper in ((k4_record, k4.flash_attention_cuda),
+                            (k5_record, k5.ssd_chunked_cuda)):
+        record["routes"] = check_routes(
+            "K4" if record is k4_record else "K5", wrapper.route_launches,
+            {arch: (routes[arch][record["name"]], counts[record["name"]])
+             for arch, counts in paths.items()})
     log(smi)  # again, so that the end of a long log names the card too
     log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k5_record,
                                 k6_record]}))

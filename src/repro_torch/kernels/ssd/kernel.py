@@ -1,9 +1,12 @@
 """CUDA chunked SSD (K5) for Hopper: build, binding and launch wrapper.
 
-The kernel lives in ``csrc/ssd_kernels.cu`` behind a plain C interface,
+The kernels live in ``csrc/ssd_kernels.cu`` behind a plain C interface,
 built and loaded at first use by :mod:`repro_torch.kernels.nvcc`
 (``sm_90a``, ``ctypes``). Nothing is compiled or loaded when this module is
-imported.
+imported. bfloat16 runs on the tensor cores (``mma.sync``, each float32
+operand split into three bf16 terms so that the products keep float32
+precision); float32 on the SIMT kernel. Either way one CTA a
+(batch, head) walks the chunks.
 
 :func:`ssd_chunked_cuda` replaces ``repro/kernels/ssd/kernel.py``
 ``_ssd_kernel`` / ``ssd_chunked_bhsp`` in its ``(B, H, S, P)`` layout and
@@ -15,11 +18,14 @@ hands it views of one projection), allocates the outputs with torch,
 launches on torch's current stream, and raises when the C call returns a
 CUDA error (a refused launch never runs, and a later synchronisation
 would not say so). Its plain-integer ``launches`` counter goes up by one
-where it launches the kernel, and nowhere else.
+a call that launches, and nowhere else; ``route_launches`` counts the
+same launches by ``(dtype, route)``, the route being the one that the C
+entry reports it launched (``"tensor_core"`` or ``"simt"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -34,6 +40,8 @@ NVCC_FLAGS = nvcc.BASE_FLAGS
 
 #: dtype codes of the C interface (``enum Dtype`` in the source)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: route codes of the C interface (``enum Route`` in the source)
+ROUTES = {0: "simt", 1: "tensor_core"}
 #: the kernel's compile-time extents: chunk, head dim, state dim
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 128
 
@@ -48,11 +56,26 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P,
+        ctypes.POINTER(_I),
     ]
     lib.ssd_launch.restype = _I
     lib.ssd_error_string.argtypes = [_I]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_tensor_core_layout(x: torch.Tensor, bmat: torch.Tensor,
+                             cmat: torch.Tensor) -> None:
+    """Raise unless x ``(B, H, S, P)``, bmat and cmat ``(B, S, N)`` allow
+    the tensor-core route's 16-byte copies: P and N multiples of 8, every
+    stride a multiple of 8 elements, each tensor 16-byte aligned."""
+    for name, t in (("x", x), ("bmat", bmat), ("cmat", cmat)):
+        if t.shape[-1] % 8 or any(st % 8 for st in t.stride()[:-1]) or \
+                t.data_ptr() % 16:
+            raise ValueError(
+                f"the bfloat16 route copies 16-byte rows: {name}'s last "
+                f"dimension ({t.shape[-1]}) and strides {t.stride()[:-1]} "
+                f"must be multiples of 8 and its data 16-byte aligned")
 
 
 def _check(x, dt, a_neg, bmat, cmat, h0, chunk) -> None:
@@ -97,6 +120,8 @@ def _check(x, dt, a_neg, bmat, cmat, h0, chunk) -> None:
             f"chunk {chunk}, head dim {p}, state {n}: the kernel takes chunk "
             f"in [1, {MAX_CHUNK}], head dim <= {MAX_HEAD_DIM}, state <= "
             f"{MAX_STATE}")
+    if x.dtype == torch.bfloat16:
+        check_tensor_core_layout(x, bmat, cmat)
 
 
 def ssd_chunked_cuda(
@@ -120,6 +145,7 @@ def ssd_chunked_cuda(
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     require_hopper(dev)
+    route = _I(-1)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.ssd_launch(
@@ -129,13 +155,16 @@ def ssd_chunked_cuda(
             chunk, x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
             dt.stride(1), dt.stride(2), bmat.stride(0), bmat.stride(1),
             cmat.stride(0), cmat.stride(1),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(route),
         )
-    ssd_chunked_cuda.launches += 1
     if err != 0:
         msg = lib.ssd_error_string(err).decode()
         raise RuntimeError(f"ssd kernel failed: CUDA error {err} ({msg})")
+    ssd_chunked_cuda.launches += 1
+    ssd_chunked_cuda.route_launches[
+        (str(x.dtype).removeprefix("torch."), ROUTES[route.value])] += 1
     return y.transpose(1, 2), h_last
 
 
 ssd_chunked_cuda.launches = 0
+ssd_chunked_cuda.route_launches = collections.Counter()

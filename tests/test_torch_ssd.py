@@ -6,8 +6,11 @@ side runs the Pallas kernel in interpret mode (its default off a TPU), its
 oracle ``repro.kernels.ssd.ssd_ref`` and the model's ``ssd_chunked``; the
 port's ``kernels.ssd.ops`` take the plain version on a CPU tensor. The
 mixer is held at the reference's own 1e-4 (``tests/test_kernels.py:56-68``),
-layers at 1e-5 in float32. The CUDA kernel itself is checked on the card
-by ``chip_smoke.py``.
+layers at 1e-5 in float32. The CUDA kernels themselves are checked on the
+card by ``chip_smoke.py``; here the bfloat16 route's arithmetic (float32
+operands split into bf16 terms on the tensor cores) is rehearsed in plain
+torch and held to the reference's 1e-4 and to the band ``chip_smoke.py``
+holds the kernel to.
 """
 
 import jax
@@ -23,8 +26,11 @@ from repro.models import ssd as js
 from repro.models.layers import init_params as jax_init_params
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssd import (
-    ssd_chunked, ssd_chunked_cuda, ssd_chunked_ref, ssd_mixer, ssd_ref,
+    ssd_chunked, ssd_chunked_cuda, ssd_chunked_ref, ssd_chunked_split_ref,
+    ssd_mixer, ssd_ref,
 )
+from repro_torch.kernels.ssd import kernel as k5_kernel
+from repro_torch.kernels.ssd import ref as k5_ref
 from repro_torch.models import ssd as ps
 
 MIXER_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -114,6 +120,211 @@ def test_cpu_tensors_take_the_plain_version_not_the_kernel():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_chunked_cuda(x, dt, a, bm, cm, chunk=8)
     assert ssd_chunked_cuda.launches == before
+
+
+def test_cpu_tensors_launch_no_route():
+    x, dt, a, bm, cm = (_t(v) for v in _mixer_inputs(4, 1, 2, 20, 8, 16))
+    before = dict(ssd_chunked_cuda.route_launches)
+    ssd_mixer(x.to(torch.bfloat16), dt, a, bm.to(torch.bfloat16),
+              cm.to(torch.bfloat16), chunk=8)
+    assert dict(ssd_chunked_cuda.route_launches) == before
+
+
+def test_tensor_core_route_takes_16_byte_rows_in_place():
+    """The bfloat16 route reads x (B, H, S, P) and B, C (B, S, N) where
+    they lie, 16 bytes a copy: the model's strided views pass; a head dim
+    or state dim that is no multiple of 8, or rows off a 16-byte boundary,
+    are refused."""
+    bf16 = torch.bfloat16
+    proj = torch.zeros(2, 40, 4 * 64 + 2 * 128, dtype=bf16)  # (B, S, ...)
+    x = proj[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
+    bm, cm = proj[..., 256:384], proj[..., 384:]
+    k5_kernel.check_tensor_core_layout(x, bm, cm)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k5_kernel.check_tensor_core_layout(x[..., :60], bm, cm)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k5_kernel.check_tensor_core_layout(x, bm[..., :100], cm)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k5_kernel.check_tensor_core_layout(x, proj[..., 257:385], cm)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,q", CASES)
+def test_plain_version_in_float64_holds_the_reference(b, h, s, p, n, q):
+    """The plain version computed in float64 (the yardstick against which
+    chip_smoke.py reads where a float32 result's error comes from), from
+    an initial state: float64 out, within the reference's 1e-4 of the JAX
+    model's ssd_chunked, and the float32 form within the same of it."""
+    x, dt, a, bm, cm = _mixer_inputs(5, b, h, s, p, n)
+    x, dt = x.transpose(0, 2, 1, 3).copy(), dt.transpose(0, 2, 1).copy()
+    h0 = np.random.default_rng(6).normal(size=(b, h, p, n)).astype(np.float32)
+    args = [_t(v) for v in (x, dt, a, bm, cm)]
+    y, h_last = ssd_chunked_ref(*args, q, _t(h0), dtype=torch.float64)
+    assert y.dtype == h_last.dtype == torch.float64
+    jy, jh = js.ssd_chunked(*(jnp.asarray(v) for v in (x, dt, a, bm, cm)), q,
+                            jnp.asarray(h0))
+    np.testing.assert_allclose(_np(y), _np(jy), **MIXER_TOL)
+    np.testing.assert_allclose(_np(h_last), _np(jh), **MIXER_TOL)
+    y32, h32 = ssd_chunked_ref(*args, q, _t(h0))
+    np.testing.assert_allclose(_np(y32), _np(y), **MIXER_TOL)
+    np.testing.assert_allclose(_np(h32), _np(h_last), **MIXER_TOL)
+
+
+# ------------------------------------------------- the bf16 route's numerics
+
+# K5's band on the card (chip_smoke.py K5_REL_L2) and its long-memory draws
+# (K5_DT_LONG, K5_A_LONG)
+K5_REL_L2 = 3e-5
+K5_DT_LONG = (1e-3, 1e-2)
+K5_A_LONG = (0.1, 0.5)
+
+
+def _bf16_values(a):
+    """``a`` rounded to bfloat16, as float32: the values that the route's
+    bf16 operands hold, fed alike to both packages."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _rel_l2(got, want):
+    got, want = _np(got), _np(want)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _split_inputs(seed, b, h, s, p, n, with_h0):
+    """The model layout's inputs with x, B, C bf16-valued, and h0."""
+    x, dt, a, bm, cm = _mixer_inputs(seed, b, h, s, p, n)
+    x, bm, cm = (_bf16_values(v) for v in (x, bm, cm))
+    x, dt = x.transpose(0, 2, 1, 3).copy(), dt.transpose(0, 2, 1).copy()
+    h0 = (np.random.default_rng(seed + 1).normal(size=(b, h, p, n))
+          .astype(np.float32) if with_h0 else None)
+    return x, dt, a, bm, cm, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,h,s,p,n,q", CASES + [(1, 3, 37, 8, 16, 16)])
+def test_split_operands_hold_the_contract(b, h, s, p, n, q, with_h0):
+    """K5's tensor-core arithmetic (bf16 C Bᵀ, dt on the float32 side, each
+    float32 operand split into bf16 terms, float32 sums, the chunk states
+    scanned apart) against the JAX model's ssd_chunked and, without h0,
+    the Pallas kernel's oracle, at the reference's 1e-4; against the
+    port's plain version within K5_REL_L2."""
+    x, dt, a, bm, cm, h0 = _split_inputs(1, b, h, s, p, n, with_h0)
+    args = [_t(v) for v in (x, dt, a, bm, cm)]
+    h0_t = None if h0 is None else _t(h0)
+    y, h_last = ssd_chunked_split_ref(*args, q, h0_t)
+    jy, jh = js.ssd_chunked(*(jnp.asarray(v) for v in (x, dt, a, bm, cm)), q,
+                            None if h0 is None else jnp.asarray(h0))
+    np.testing.assert_allclose(_np(y), _np(jy), **MIXER_TOL)
+    np.testing.assert_allclose(_np(h_last), _np(jh), **MIXER_TOL)
+    if h0 is None:
+        oracle = jax_ssd_ref(jnp.asarray(x.transpose(0, 2, 1, 3)),
+                             jnp.asarray(dt.transpose(0, 2, 1)),
+                             *(jnp.asarray(v) for v in (a, bm, cm)), q)
+        np.testing.assert_allclose(_np(y).transpose(0, 2, 1, 3),
+                                   _np(oracle), **MIXER_TOL)
+    want = ssd_chunked_ref(*args, q, h0_t)
+    assert _rel_l2(y, want[0]) < K5_REL_L2
+    assert _rel_l2(h_last, want[1]) < K5_REL_L2
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_split_operands_hold_the_band_over_a_long_memory(with_h0):
+    """A reduced long-memory case (dt in U(1e-3, 1e-2), a in -U(0.1, 0.5):
+    the state carried across chunks dominates y): the split arithmetic
+    within K5_REL_L2 of the plain version, y and h_last; the unsplit
+    control (one bf16 term an operand) outside, like the no-carry
+    control."""
+    b, h, s, p, n, q = 1, 4, 1000, 64, 128, 64
+    rng = np.random.default_rng(11)
+    x = _bf16_values(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    dt = rng.uniform(*K5_DT_LONG, (b, s, h)).astype(np.float32)
+    a = -rng.uniform(*K5_A_LONG, (h,)).astype(np.float32)
+    bm, cm = (_bf16_values(rng.normal(size=(b, s, n)).astype(np.float32))
+              for _ in range(2))
+    h0 = (_t(rng.normal(size=(b, h, p, n)).astype(np.float32)) if with_h0
+          else None)
+    args = [_t(v) for v in (x, dt, a, bm, cm)]
+    want = ssd_chunked_ref(*args, q, h0)
+    split = ssd_chunked_split_ref(*args, q, h0)
+    unsplit = ssd_chunked_split_ref(*args, q, h0, terms=(1, 1, 1))
+    no_carry = [ssd_chunked_ref(*(v[:, t:t + q] for v in args[:2]), args[2],
+                                *(v[:, t:t + q] for v in args[3:]), q)
+                for t in range(0, s, q)]
+    no_carry = (torch.cat([y for y, _ in no_carry], 1), no_carry[-1][1])
+    for i in range(2):
+        assert _rel_l2(split[i], want[i]) < K5_REL_L2
+        assert _rel_l2(unsplit[i], want[i]) > K5_REL_L2
+        assert _rel_l2(no_carry[i], want[i]) > K5_REL_L2
+
+
+def _worst_share(got, want):
+    """The largest |got - want| / (atol + rtol |want|) at MIXER_TOL: above
+    1, an element falls outside the reference's 1e-4."""
+    return float(((got - want).abs()
+                  / (MIXER_TOL["atol"] + MIXER_TOL["rtol"] * want.abs()))
+                 .max())
+
+
+def test_h_prev_takes_a_third_term_over_a_serving_sequence():
+    """One sequence of mamba2's prefill (4,600 tokens, 16 of its 64 heads)
+    from a random initial state under a long memory, where C h_prevᵀ is
+    the largest term of y: with every operand in three bf16 terms, as the
+    kernel takes them, the worst element of y stays within half the
+    reference's 1e-4; with h_prev in two it reaches past half (on the
+    card, one element of the 64-head sequence fell outside 1e-4 so)."""
+    b, h, s, p, n, q = 1, 16, 4600, 64, 128, 64
+    rng = np.random.default_rng(11)
+    x = _bf16_values(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    dt = rng.uniform(*K5_DT_LONG, (b, s, h)).astype(np.float32)
+    a = -rng.uniform(*K5_A_LONG, (h,)).astype(np.float32)
+    bm, cm = (_bf16_values(rng.normal(size=(b, s, n)).astype(np.float32))
+              for _ in range(2))
+    h0 = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    args = [_t(v) for v in (x, dt, a, bm, cm)]
+    want, _ = ssd_chunked_ref(*args, q, _t(h0))
+
+    def worst(terms):
+        return _worst_share(
+            ssd_chunked_split_ref(*args, q, _t(h0), terms=terms)[0], want)
+
+    assert worst(k5_ref.SPLIT_TERMS) < 0.5
+    assert worst((3, 3, 2)) > 0.5
+
+
+@pytest.mark.parametrize("two_terms", [(2, 3, 3), (3, 2, 3)],
+                         ids=["S_L_dt", "x_w"])
+def test_every_operand_takes_a_third_term_over_a_short_memory_sequence(
+        two_terms):
+    """One sequence of mamba2's prefill (16 heads) under the reference's
+    short memory (dt in U(0.01, 0.2), a in -U(0.5, 2)), where y's own
+    chunk dominates: with every operand in three bf16 terms the worst
+    element of y takes under a tenth of the reference's 1e-4; with S ⊙ L ⊙
+    dt_j or x ⊙ w in two, over a quarter, which over a serving batch's
+    64 times as many elements leaves little margin."""
+    b, h, s, p, n, q = 1, 16, 4600, 64, 128, 64
+    rng = np.random.default_rng(12)
+    x = _bf16_values(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    dt = rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32)
+    a = -rng.uniform(0.5, 2.0, (h,)).astype(np.float32)
+    bm, cm = (_bf16_values(rng.normal(size=(b, s, n)).astype(np.float32))
+              for _ in range(2))
+    args = [_t(v) for v in (x, dt, a, bm, cm)]
+    want, _ = ssd_chunked_ref(*args, q)
+    assert _worst_share(ssd_chunked_split_ref(*args, q)[0], want) < 0.1
+    assert _worst_share(
+        ssd_chunked_split_ref(*args, q, terms=two_terms)[0], want) > 0.25
+
+
+@pytest.mark.parametrize("b,h,s,p,n,q", CASES)
+def test_unsplit_operands_miss_the_band(b, h, s, p, n, q):
+    """The control: float32 operands fed to the tensor cores as one bf16
+    term read above K5_REL_L2 on the reference's cases, so the band tells
+    the two designs apart."""
+    x, dt, a, bm, cm, h0 = _split_inputs(1, b, h, s, p, n, True)
+    args = [_t(v) for v in (x, dt, a, bm, cm)]
+    want = ssd_chunked_ref(*args, q, _t(h0))
+    unsplit = ssd_chunked_split_ref(*args, q, _t(h0), terms=(1, 1, 1))
+    assert _rel_l2(unsplit[0], want[0]) > K5_REL_L2
+    assert _rel_l2(unsplit[1], want[1]) > K5_REL_L2
 
 
 # --------------------------------------------------------------------------- the block
