@@ -9,11 +9,20 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 1. the card's name and power limit (``nvidia-smi``), torch version, and
    compute capability, which must be 9.0;
 2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
-   ``nvcc`` for each source, all started together, and K4's and K5's
-   sources once more beside them under ``-Xptxas -v``: no K4 or K5
-   instance may spill;
+   ``nvcc`` for each source, all started together, and the swarm, K4 and
+   K5 sources once more beside them under ``-Xptxas -v``: no K1, K2, K4
+   or K5 kernel may spill (K2's registers are logged with the grid it
+   chose);
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
-   version, index-exact, at the fleet path's shape and on edge cases;
+   versions, index-exact, in both forms: the dense form (``(k, P)``
+   candidates) at the fleet path's shape and on edge cases, and the
+   gathered form (the candidates built inside the kernel from the fleet
+   state) against ``select_rows_ref`` on a seeded ``n = 10^6, P = 125``
+   state and a ``P = 257`` one, on the four stream rules, ``k`` of 1, 7,
+   300 and ``n`` with repeated rows, ``other`` at -1, in range and on the
+   row's only candidate, rows holding every piece, replica counts at 0
+   and near ``n``; timed at ``k = 10^6`` beside the replaced design (the
+   candidates built by torch ops, then the dense form);
 4. K3 (device checksum) on the card against its plain version, exact,
    on every dtype it reads, lengths 1-7, ``n = b``, ragged ``n``,
    ``block=512``, blocks large enough for the reference's uint32 sums to
@@ -59,11 +68,17 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    committed apart from ``n`` and ``dt`` (a file naming no backend runs the
    device tick), held to the float64 golden of
    ``BENCH_swarm_scaling.json``; K1's and K2's launch counts are read from
-   this run alone;
-9. K2 (max-min water-filling) on the card against its plain version,
-   bit-exact (rates, rounds and each round's active-flow count), on flow
-   tables captured from the fleet path and on small random topologies
-   (also within 1e-3 of the float64 numpy water-fill);
+   this run alone, K1's by form: every selection must launch the gathered
+   form once and none the dense form; the seconds inside the K1 and K2
+   dispatches are logged beside the select and waterfill phases;
+9. K2 (max-min water-filling, one cooperative launch a call) on the card
+   against its plain version, bit-exact (rates, rounds and each round's
+   active-flow count; each round's touched slots against the compacted
+   plain statement), on flow tables captured from the fleet path and on
+   small random topologies (also within 1e-3 of the float64 numpy
+   water-fill); one call at the largest table under ``torch.profiler``
+   must launch ``waterfill_kernel`` once, its other device operations
+   logged;
 10. the checkpoint broadcast path: stage 2 of
     ``python -m repro_torch.examples.checkpoint_broadcast`` on an 8 GiB
     (2**33-byte) bundle made from a seed, through a one-rank NCCL group:
@@ -337,8 +352,9 @@ def k1_inputs(rng, k, P, density=0.5, avail_hi=1_000_000, avail_lo=0,
     return cand, avail, jitter
 
 
-def check_k1(kernels, dev):
-    """K1 vs its plain version on the card; returns the kernel's record."""
+def check_k1_dense(kernels, dev):
+    """K1's dense form vs its plain version on the card; returns its
+    numbers at the fleet path's shape."""
     import numpy as np
     import torch
 
@@ -355,6 +371,9 @@ def check_k1(kernels, dev):
     cases.append(("avail_near_2^24", *k1_inputs(
         rng, 1000, 125, avail_lo=(1 << 24) - 4, avail_hi=1 << 24,
         quantized=True)))
+    # rows too wide for a staged tile of 32, read from device memory
+    cases.append(("wide_8_rows", *k1_inputs(rng, 37, 700)))
+    cases.append(("wide_unstaged", *k1_inputs(rng, 37, 1500)))
     worst = 0
     main = None
     for name, cand, avail, jitter in cases:
@@ -364,12 +383,12 @@ def check_k1(kernels, dev):
         got = kernels.rarest_argmin_cuda(c, a, j)
         want = kernels.rarest_argmin_ref(c, a, j)
         if not torch.equal(got, want):
-            fail(f"K1 {name}: {int((got != want).sum())} picks differ "
+            fail(f"K1 dense {name}: {int((got != want).sum())} picks differ "
                  "from the plain version")
         worst = max(worst, int((got.long() - want.long()).abs().max()))
         if name == "main":
             main = (c, a, j)
-        log(f"K1 {name} {tuple(cand.shape)}: index-exact")
+        log(f"K1 dense {name} {tuple(cand.shape)}: index-exact")
     c, a, j = main
     k, P = c.shape
     ms = median_ms(lambda: kernels.rarest_argmin_cuda(c, a, j), reps=20)
@@ -378,6 +397,135 @@ def check_k1(kernels, dev):
     # (availability, then jitter) per candidate
     bound_ms, bound_by = bound(k * P * (1 + 4) + 4 * P + 4 * k,
                                2 * int(c.sum()))
+    return worst, {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "shape": [k, P],
+    }
+
+
+# the stream rules of the gathered form: (stream, mode, fallback)
+STREAM_RULES = [("http", "swarm_first", True), ("http", "swarm_first", False),
+                ("http", "http_first", False), ("swarm", "swarm_first", True)]
+
+
+def gathered_state(kernels, rng, n, P, dev):
+    """A fleet state from a numpy seed with the gathered form's edge cases
+    in it: row 1 holds every piece, rows 2 and 3 miss one piece each (1
+    and 5: ``gathered_rows`` may hand either to the other stream), a
+    quarter of the jitter rows quantized (ties down to the piece index),
+    replica counts at 0 (pieces 0-2) and near ``n``."""
+    import numpy as np
+
+    jitter = rng.random((n, P), dtype=np.float32)
+    jitter[: n // 4] = rng.integers(0, 3, (n // 4, P)) / 4.0
+    swarm_class = rng.random(P) < 0.6
+    swarm_class[:2] = [True, False]
+    have = rng.random((n, P)) < 0.5
+    have[1] = True
+    have[2] = True
+    have[2, 1] = False
+    have[3] = True
+    have[3, 5] = False
+    repl = have.sum(axis=0)
+    repl[3::4] = n - 1 - np.arange(repl[3::4].size) % 3
+    repl[5] = n - 2
+    repl[:3] = 0
+    return kernels.FleetDeviceState.from_arrays(
+        have, jitter, repl, swarm_class, device=dev)
+
+
+def gathered_rows(rng, n, P, k, dev):
+    """``k`` rows with repeats (rows 1-3 among them) and their ``other``:
+    -1, a random piece, or the row's only candidate."""
+    import numpy as np
+    import torch
+
+    rows = rng.integers(0, n, k)
+    rows[: min(k, 3)] = [1, 2, 3][: min(k, 3)]
+    other = np.where(rng.random(k) < 0.5, rng.integers(0, P, k), -1)
+    for row, only in ((2, 1), (3, 5)):
+        at = rows == row
+        other[at] = np.where(rng.random(int(at.sum())) < 0.5, only, -1)
+    return (torch.from_numpy(rows).to(dev), torch.from_numpy(other).to(dev))
+
+
+def check_k1(kernels, dev):
+    """K1 vs its plain versions on the card, both forms; returns the
+    kernel's record (the gathered form's numbers: the fleet path's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.swarm import ref
+
+    worst, dense = check_k1_dense(kernels, dev)
+    rng = np.random.default_rng(17)
+    for n, P in ((N_PEERS, 125), (20_000, 257)):
+        st = gathered_state(kernels, rng, n, P, dev)
+        state = (st.have, st.jitter, st.repl, st.swarm_class)
+        for k in (1, 7, 300, n):
+            r, o = gathered_rows(rng, n, P, k, dev)
+            for stream, mode, fallback in STREAM_RULES:
+                kw = dict(stream=stream, mode=mode, fallback=fallback)
+                got = kernels.select_rows_cuda(*state, r, o, **kw)
+                want = kernels.select_rows_ref(*state, r, o, **kw)
+                what = f"K1 gathered n={n} P={P} k={k} {stream}/{mode}" \
+                    f"/{fallback}"
+                if not torch.equal(got, want):
+                    fail(f"{what}: {int((got != want).sum())} picks differ "
+                         "from the plain version")
+                held_all = got[r == 1]
+                only_gone = got[((r == 2) & (o == 1)) | ((r == 3) & (o == 5))]
+                if (held_all != -1).any() or (only_gone != -1).any():
+                    fail(f"{what}: a row with no candidate picked a piece")
+                worst = max(worst, int((got.long() - want.long()).abs().max()))
+            log(f"K1 gathered n={n} P={P} (pitch {st.pitch}) k={k}: "
+                "index-exact on the four stream rules")
+        if n != N_PEERS:
+            continue
+        # the fleet path's shape: every row of a 10^6-peer state once
+        r = torch.randperm(n, device=dev)
+        o = torch.from_numpy(np.where(
+            rng.random(n) < 0.5, rng.integers(0, P, n), -1)).to(dev)
+        kw = dict(zip(("stream", "mode", "fallback"), STREAM_RULES[0]))
+        ms = median_ms(lambda: kernels.select_rows_cuda(*state, r, o, **kw),
+                       reps=20)
+        plain_ms = median_ms(
+            lambda: kernels.select_rows_ref(*state, r, o, **kw), reps=5)
+        # the replaced design: the candidates built by torch ops, then the
+        # dense form
+        with swapped(ref, "rarest_argmin_ref", kernels.rarest_argmin_cuda):
+            control = kernels.select_rows_ref(*state, r, o, **kw)
+            control_ms = median_ms(
+                lambda: kernels.select_rows_ref(*state, r, o, **kw), reps=5)
+        if not torch.equal(control, kernels.select_rows_cuda(*state, r, o,
+                                                             **kw)):
+            fail("K1 gathered: the replaced design picks otherwise")
+        # what the wrapper's device-side range check (one synchronisation)
+        # adds to a small call, against ranges checked on the host as
+        # FleetDeviceState.select does
+        r3, o3 = gathered_rows(rng, n, P, 300, dev)
+        range_check = {
+            f"{where}_ms": median_ms(
+                lambda c=checked: kernels.select_rows_cuda(
+                    *state, r3, o3, ranges_checked=c, **kw), reps=20)
+            for where, checked in (("device", False), ("host", True))}
+        k = r.numel()
+        rows_read = int(torch.unique(r).numel())
+        # the rows read once (a have byte and a jitter float a piece), rows,
+        # other and the picks, the (P,) counts and classes; one candidate
+        # test and one compare a piece
+        bound_ms, bound_by = bound(rows_read * P * 5 + k * (8 + 8 + 4)
+                                   + P * 5, 2 * k * P, I32_OPS_PER_S)
+        shape = [k, n, P]
+        del st, state
+        torch.cuda.empty_cache()
+    log(f"K1 gathered at k={shape[0]} of n={shape[1]}: {ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), plain {plain_ms:.3f} ms, the "
+        f"replaced torch build + dense form {control_ms:.3f} ms; dense "
+        f"form at {dense['shape']}: {dense['ms']:.3f} ms, bound "
+        f"{dense['bound_ms']:.3f} ms, plain {dense['plain_ms']:.3f} ms; at "
+        f"k=300 the device range check {range_check['device_ms']:.4f} ms a "
+        f"call, ranges checked on the host {range_check['host_ms']:.4f} ms")
     return {
         "name": "rarest_argmin",
         "route": "cuda",
@@ -390,7 +538,11 @@ def check_k1(kernels, dev):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-        "shape": [k, P],
+        "form": "gathered",
+        "shape": shape,
+        "control_ms": control_ms,
+        "range_check_k300": range_check,
+        "dense": dense,
     }
 
 
@@ -445,17 +597,36 @@ def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
         k2_seconds.append(time.perf_counter() - t)
         return out
 
+    # the same for the selection: the seconds inside the K1 dispatch (input
+    # checks and the gathered form), against the host's row masks, index
+    # uploads and pick downloads around it
+    select_dispatch = ops.select_rows
+    k1_seconds = []
+
+    def timed_select(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = select_dispatch(*args, **kw)
+        torch.cuda.synchronize()
+        k1_seconds.append(time.perf_counter() - t)
+        return out
+
     ops.waterfill = timed_waterfill
+    ops.select_rows = timed_select
     kernels.rarest_argmin_cuda.launches = 0
+    kernels.select_rows_cuda.launches = 0
     kernels.waterfill_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         res = compiled.run().primary
     finally:
         ops.waterfill = dispatch
+        ops.select_rows = select_dispatch
     wall = time.perf_counter() - t0
+    by_form = {"dense": kernels.rarest_argmin_cuda.launches,
+               "gathered": kernels.select_rows_cuda.launches}
     launches = {
-        "rarest_argmin": kernels.rarest_argmin_cuda.launches,
+        "rarest_argmin": sum(by_form.values()),
         "waterfill": kernels.waterfill_cuda.launches,
     }
 
@@ -477,7 +648,19 @@ def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
         f"dispatch over {len(k2_seconds)} calls, "
         f"{res.phase_seconds['waterfill'] - k2_in_run:.3f}s host table "
         "build, upload and download")
-    log(f"fleet path launches: {json.dumps(launches)}")
+    k1_in_run = sum(k1_seconds)
+    log(f"fleet path select phase split: {k1_in_run:.3f}s in the K1 "
+        f"dispatch over {len(k1_seconds)} calls, "
+        f"{res.phase_seconds['select'] - k1_in_run:.3f}s host row masks, "
+        "index upload and pick download")
+    log(f"fleet path launches: {json.dumps(launches)}, K1 by form "
+        f"{json.dumps(by_form)}")
+    if by_form["dense"]:
+        fail(f"the fleet path's selection launched K1's dense form "
+             f"{by_form['dense']} times")
+    if by_form["gathered"] != len(k1_seconds):
+        fail(f"{len(k1_seconds)} selections on the fleet path, "
+             f"{by_form['gathered']} launches of K1's gathered form")
     if int(done.sum()) != n:
         fail(f"only {int(done.sum())}/{n} peers completed")
     band = max(5 * dt, 0.03 * g_tall)
@@ -486,9 +669,11 @@ def run_main_path(kernels, n=N_PEERS, dt=DT, golden_row=GOLDEN_ROW,
     for name, count in launches.items():
         if count <= 0:
             fail(f"the fleet path never launched the {name} kernel")
-    return launches, tables, {
+    return launches, by_form, tables, {
         "ticks": res.ticks, "t_all": t_all, "copies": copies, "wall_s": wall,
-        "phase_seconds": res.phase_seconds, "k2_dispatch_s": k2_in_run,
+        "phase_seconds": res.phase_seconds, "k1_dispatch_s": k1_in_run,
+        "k1_calls": len(k1_seconds), "k2_dispatch_s": k2_in_run,
+        "k2_calls": len(k2_seconds),
     }
 
 
@@ -514,18 +699,48 @@ def random_topology(rng, nf, nn, spine, inf_caps):
 
 def k2_compare(kernels, args, what):
     """K2 and its plain version on one flow table: rates, rounds and each
-    round's active-flow count must agree exactly. Returns the kernel's
-    rates, its active counts and the largest rate difference."""
+    round's active-flow count must agree exactly, and each round's touched
+    slots must be those of the compacted plain statement. Returns the
+    kernel's rates, its active and touched counts and the largest rate
+    difference."""
     import torch
 
-    act_got, act_want = [], []
-    got, r_got = kernels.waterfill_cuda(*args, active_counts=act_got)
+    act_got, act_want, touched, touched_want = [], [], [], []
+    got, r_got = kernels.waterfill_cuda(*args, active_counts=act_got,
+                                        touched_counts=touched)
     want, r_want = kernels.waterfill_ref(*args, active_counts=act_want)
     if not torch.equal(got, want) or (r_got, act_got) != (r_want, act_want):
         diff = float((got - want).abs().max())
         fail(f"K2 {what}: max |diff| {diff}, rounds {r_got} vs {r_want}, "
              f"active per round {act_got} vs {act_want}")
-    return got, act_got, float((got - want).abs().max())
+    kernels.waterfill_compact_ref(*args, touched_counts=touched_want)
+    if touched != touched_want:
+        fail(f"K2 {what}: touched slots per round {touched} vs "
+             f"{touched_want}")
+    return got, act_got, touched, float((got - want).abs().max())
+
+
+def k2_device_ops(kernels, args, dev):
+    """The device operations of one ``waterfill_cuda`` call on ``args``, as
+    torch.profiler's CUDA trace records them: ``{name: count}``, K2's own
+    kernel under ``"waterfill_kernel"``. None on the host (no trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(dev).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernels.waterfill_cuda(*args)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = ("waterfill_kernel" if "waterfill_kernel" in e.name
+                    else e.name[:80])
+            ops[name] = ops.get(name, 0) + 1
+    return ops
 
 
 def check_k2(kernels, dev, tables):
@@ -542,7 +757,7 @@ def check_k2(kernels, dev, tables):
         table = random_topology(rng, nf, nn, spine=trial % 2 == 1,
                                 inf_caps=trial % 3 == 0)
         args = kernels.flow_table(*table, device=dev)
-        got, _, err = k2_compare(
+        got, _, _, err = k2_compare(
             kernels, args, f"random topology {trial} (nf={nf}, nn={nn})")
         worst = max(worst, err)
         f64 = waterfill_rates(*table)
@@ -552,13 +767,29 @@ def check_k2(kernels, dev, tables):
         "bit-exact, within 1e-3 of float64")
     for name in ("first", "largest"):
         args = kernels.flow_table(*tables[name], device=dev)
-        _, active, err = k2_compare(kernels, args, f"main-path table {name}")
+        _, active, touched, err = k2_compare(
+            kernels, args, f"main-path table {name}")
         worst = max(worst, err)
         log(f"K2 main-path table {name} (nf={args[0].numel()}, "
-            f"nodes={args[3].numel()}): bit-exact, {len(active)} rounds, "
-            f"active flows per round {active}")
+            f"nodes={args[3].numel()}): bit-exact, {len(active)} rounds in "
+            f"one launch of {kernels.waterfill_cuda.last_grid} CTAs, active "
+            f"flows per round {active}, touched slots per round {touched}")
     nf, nn, nlp = args[0].numel(), args[3].numel(), args[5].numel()
     ncon = 2 * nn + nlp
+    # what one call at the largest table ran on the card, from the trace
+    device_ops = k2_device_ops(kernels, args, dev)
+    if device_ops is None:
+        per_call = None
+        log("K2 device operations a call: not measured on the host")
+    else:
+        per_call = {"waterfill_kernel": device_ops.pop("waterfill_kernel", 0),
+                    "other": sum(device_ops.values())}
+        log(f"K2 device operations of one call at the largest table (torch."
+            f"profiler): waterfill_kernel {per_call['waterfill_kernel']}, "
+            f"others {json.dumps(device_ops)}")
+        if per_call["waterfill_kernel"] != 1:
+            fail(f"K2: one call launched waterfill_kernel "
+                 f"{per_call['waterfill_kernel']} times, not once")
     ms = median_ms(lambda: kernels.waterfill_cuda(*args), reps=5)
     plain_ms = median_ms(lambda: kernels.waterfill_ref(*args), reps=3)
     # Each input read once (src/dst/lnk, the capacities), the rates
@@ -568,10 +799,15 @@ def check_k2(kernels, dev, tables):
     bound_ms, bound_by = bound(
         nf * (12 + 4) + ncon * 4, sum(4 * a + 5 * ncon for a in active)
     )
-    # The round-by-round bound: a round reads every flow's frozen flag
-    # (1 B), the indices and rate of its active flows (12 + 4 B) and three
-    # 4-byte vectors per constraint slot.
+    # The round-by-round bound of the compacted design: a round reads the
+    # indices and rate of its active flows (12 + 4 B) and, for each slot
+    # they touch, its capacity, allocation and count (12 B). Beside it the
+    # bound of the replaced full-table design: every flow's frozen flag and
+    # three 4-byte vectors for every slot, each round.
     round_bound_ms = sum(
+        16 * a + 12 * s for a, s in zip(active, touched)
+    ) / HBM_BYTES_PER_S * 1e3
+    table_round_bound_ms = sum(
         nf + 16 * a + 12 * ncon for a in active
     ) / HBM_BYTES_PER_S * 1e3
     return {
@@ -589,7 +825,14 @@ def check_k2(kernels, dev, tables):
         "shape": [nf, nn, nlp],
         "rounds": len(active),
         "active_per_round": active,
+        "touched_per_round": touched,
         "round_bound_ms": round_bound_ms,
+        "table_round_bound_ms": table_round_bound_ms,
+        # device operations of one call, read from the profiler's trace:
+        # K2's kernel, and the rest (input checks, the scratch's zero-fill,
+        # the copies of the rounds back)
+        "launches_per_call": per_call,
+        "grid": kernels.waterfill_cuda.last_grid,
     }
 
 
@@ -943,6 +1186,39 @@ def check_k5_ptxas(report: str) -> dict:
     if spills:
         fail(f"K5 -Xptxas -v: spilled bytes {spills}")
     log("K5 -Xptxas -v, registers a thread, no spill: "
+        + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
+    return found
+
+
+SWARM_KERNELS = {"rarest_dense_kernelILb1E": "K1 dense, 32 staged rows a CTA",
+                 "rarest_dense_kernelILb0E": "K1 dense, a warp a row",
+                 "rarest_gathered_kernel": "K1 gathered",
+                 "waterfill_kernel": "K2 persistent"}
+
+
+def check_swarm_ptxas(report: str) -> dict:
+    """Registers and spilled bytes of each K1 and K2 kernel from
+    ``-Xptxas -v``'s ``report``, as {"kernel": [registers, spill bytes]};
+    fails if any of them spills."""
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((v for key, v in SWARM_KERNELS.items()
+                         if key in m.group(1)), m.group(1))
+            found[name] = [0, 0]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[name][1] = int(m.group(1)) + int(m.group(2))
+    if sorted(found) != sorted(SWARM_KERNELS.values()):
+        fail(f"swarm -Xptxas -v: kernels {sorted(found)}, expected "
+             f"{sorted(SWARM_KERNELS.values())}:\n{report}")
+    spills = {n: v[1] for n, v in found.items() if v[1]}
+    if spills:
+        fail(f"swarm -Xptxas -v: spilled bytes {spills}")
+    log("swarm -Xptxas -v, registers a thread, no spill: "
         + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
     return found
 
@@ -2232,20 +2508,22 @@ def main() -> int:
     require_hopper(dev)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        # K4's and K5's sources once more under -Xptxas -v, beside the
-        # builds
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        # the swarm, K4 and K5 sources once more under -Xptxas -v, beside
+        # the builds
         reports = [pool.submit(nvcc.ptxas_report, m.kernel.SOURCE,
-                               m.kernel.NVCC_FLAGS) for m in (k4, k5)]
+                               m.kernel.NVCC_FLAGS) for m in (kernels, k4, k5)]
         libs = nvcc.build(*((m.kernel.SOURCE, m.kernel.NVCC_FLAGS)
                             for m in (kernels, k3, k4, k5, k6)))
-        k4_ptxas = check_k4_ptxas(reports[0].result(), k4.kernel.HEAD_DIMS)
-        k5_ptxas = check_k5_ptxas(reports[1].result())
+        swarm_ptxas = check_swarm_ptxas(reports[0].result())
+        k4_ptxas = check_k4_ptxas(reports[1].result(), k4.kernel.HEAD_DIMS)
+        k5_ptxas = check_k5_ptxas(reports[2].result())
     log(f"build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f}s")
 
     with phase("K1, K3, K4, K5, K6"):
         k1 = check_k1(kernels, dev)
+        k1["ptxas"] = {n: v for n, v in swarm_ptxas.items() if "K1" in n}
         check_k3(k3, dev)
         k4_record = check_k4(k4, dev)
         k4_record["ptxas"] = k4_ptxas
@@ -2253,9 +2531,13 @@ def main() -> int:
         k5_record["ptxas"] = k5_ptxas
         k6_record = check_k6(k6, dev)
     with phase("fleet path and K2"):
-        launches, tables, outcome = run_main_path(kernels)
+        launches, by_form, tables, outcome = run_main_path(kernels)
         k2 = check_k2(kernels, dev, tables)
+        k2["ptxas"] = swarm_ptxas["K2 persistent"]
+    log(f"K2 persistent kernel: {swarm_ptxas['K2 persistent'][0]} registers "
+        f"a thread, a grid of {k2['grid']} CTAs of 256 threads")
     k1["launches"] = launches["rarest_argmin"]
+    k1["launches_by_form"] = by_form
     k2["launches"] = launches["waterfill"]
     log("fleet path outcome: " + json.dumps(outcome))
     with phase("broadcast path"):

@@ -14,9 +14,10 @@ Three layers, mirroring ``repro/kernels/swarm/ops.py``:
 
 - :class:`FleetDeviceState` — what ``FleetSpec.backend = "pallas"`` keeps
   on the device across ticks: the ``(n, P)`` have-matrix, the fixed
-  float32 jitter, and the replica counts. Per-tick selection builds the
-  candidate mask on the device, so only the ``(k,)`` pick vector crosses
-  back; completions and departures are incremental scatters sized by what
+  float32 jitter, and the replica counts. Per-tick selection
+  (:func:`select_rows`) builds each row's candidates inside K1's gathered
+  form on the card, so only the ``(k,)`` pick vector crosses back;
+  completions and departures are incremental scatters sized by what
   changed. Eager PyTorch needs no padding, so every call passes exact
   sizes (the JAX package padded to powers of two and leaned on dropped
   out-of-bounds indices to bound retraces; an out-of-bounds index on CUDA
@@ -33,8 +34,8 @@ import numpy as np
 import torch
 
 from ...core.piece_selection import MAX_EXACT_AVAILABILITY
-from .kernel import rarest_argmin_cuda, waterfill_cuda
-from .ref import link_channel, rarest_argmin_ref, waterfill_ref
+from .kernel import PITCH, rarest_argmin_cuda, select_rows_cuda, waterfill_cuda
+from .ref import link_channel, rarest_argmin_ref, select_rows_ref, waterfill_ref
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -54,6 +55,30 @@ def rarest_argmin(
     if _route(cand, "rarest_argmin"):
         return rarest_argmin_cuda(cand, avail, jitter)
     return rarest_argmin_ref(cand, avail, jitter)
+
+
+def select_rows(
+    have: torch.Tensor,
+    jitter: torch.Tensor,
+    repl: torch.Tensor,
+    swarm_class: torch.Tensor,
+    rows: torch.Tensor,
+    other: torch.Tensor,
+    *,
+    stream: str,
+    mode: str,
+    fallback: bool,
+    ranges_checked: bool = False,
+) -> torch.Tensor:
+    """The fleet state's selection for ``rows`` on one stream: ``(k,)``
+    int32 picks. On CUDA K1's gathered form builds the candidates inside
+    the kernel (``ranges_checked``: the caller has checked ``rows`` and
+    ``other`` on the host); on the CPU the plain torch composition."""
+    kw = dict(stream=stream, mode=mode, fallback=fallback)
+    if _route(have, "select_rows"):
+        return select_rows_cuda(have, jitter, repl, swarm_class, rows,
+                                other, ranges_checked=ranges_checked, **kw)
+    return select_rows_ref(have, jitter, repl, swarm_class, rows, other, **kw)
 
 
 def waterfill(
@@ -126,6 +151,11 @@ class FleetDeviceState:
     numpy mirrors for scalar control flow (leech masks, host-RNG source
     sampling); the ``O(n * P)`` candidate-mask + argmin traffic happens
     here, and only ``(k,)`` pick vectors cross back per call.
+
+    ``have`` and ``jitter`` are ``(n, P)`` views of buffers whose rows are
+    ``pitch`` elements apart, ``P`` rounded up to a multiple of 16, so that
+    K1's gathered form reads a row with 16-byte loads; the padding columns
+    stay ``False`` and 0 and are never candidates.
     """
 
     def __init__(self, jitter: np.ndarray, swarm_class: np.ndarray,
@@ -136,14 +166,17 @@ class FleetDeviceState:
                 "replica counts no longer exact in float32 — fleet too large"
             )
         self.n, self.P = n, P
+        self.pitch = pitch = -(-P // PITCH) * PITCH
         self.device = dev = torch.device(device)
-        self.have = torch.zeros((n, P), dtype=torch.bool, device=dev)
-        self.jitter = torch.tensor(jitter, dtype=torch.float32, device=dev)
+        self.have = torch.zeros(
+            (n, pitch), dtype=torch.bool, device=dev)[:, :P]
+        self.jitter = torch.zeros(
+            (n, pitch), dtype=torch.float32, device=dev)[:, :P]
+        self.jitter.copy_(torch.tensor(jitter, dtype=torch.float32))
         self.repl = torch.zeros(P, dtype=torch.int32, device=dev)
         self.swarm_class = torch.tensor(
             swarm_class, dtype=torch.bool, device=dev
         )
-        self._pid = torch.arange(P, device=dev)
 
     @classmethod
     def from_arrays(cls, have: np.ndarray, jitter: np.ndarray,
@@ -161,28 +194,25 @@ class FleetDeviceState:
 
     def select(self, rows: np.ndarray, other: np.ndarray, *,
                stream: str, mode: str, fallback: bool) -> np.ndarray:
-        """Device cand-build + rarest-argmin for ``rows`` on one stream.
+        """Candidate build + rarest-argmin for ``rows`` on one stream
+        (:func:`select_rows`).
 
         Semantics mirror ``FleetSwarmSim._select``'s numpy cand build
-        exactly (index-exact parity is pinned by the tests)."""
-        r = self._put(rows)
-        o = self._put(other)
-        miss = ~self.have[r]  # (k, P) — built and consumed on the device
-        sc = self.swarm_class[None, :]
-        if stream == "http":
-            if mode == "http_first":
-                cand = miss
-            else:
-                cand = miss & ~sc
-                if fallback:
-                    # origin rescue for swarm-routed pieces nobody serves
-                    cand = cand | (miss & sc & (self.repl == 0)[None, :])
-        else:
-            cand = miss & sc & (self.repl > 0)[None, :]
-        # a peer's two streams exclude each other's current piece
-        cand = cand & ~(self._pid[None, :] == o[:, None])
-        pick = rarest_argmin(
-            cand.contiguous(), self.repl.to(torch.float32), self.jitter[r]
+        exactly (index-exact parity is pinned by the tests). The index
+        ranges are checked here on the host arrays, so the kernel's
+        wrapper needs no synchronisation for them."""
+        rows = np.asarray(rows, dtype=np.int64)
+        other = np.asarray(other, dtype=np.int64)
+        if rows.size and (rows.min() < 0 or rows.max() >= self.n
+                          or other.min() < -1 or other.max() >= self.P):
+            raise ValueError(
+                f"rows must lie in [0, {self.n}) and other in [-1, "
+                f"{self.P})"
+            )
+        pick = select_rows(
+            self.have, self.jitter, self.repl, self.swarm_class,
+            self._put(rows), self._put(other),
+            stream=stream, mode=mode, fallback=fallback, ranges_checked=True,
         )
         return pick.cpu().numpy().astype(np.int64)
 

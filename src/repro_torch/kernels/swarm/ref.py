@@ -9,6 +9,12 @@ and ``chip_smoke.py`` holds the CUDA kernels against them on the card:
   a row without one. Availability and jitter are never added, so the pick
   is *index-exact*.
 
+- :func:`select_rows_ref` is the fleet state's selection for one stream,
+  the torch composition that ``repro/kernels/swarm/ops.py`` ``_select_jit``
+  wraps around the Pallas kernel: the candidates of the rows built from
+  the have-matrix, the stream's routing rule and the other stream's
+  piece, then :func:`rarest_argmin_ref`.
+
 - :func:`waterfill_ref` is the float32 max-min fixed point of
   ``repro/kernels/swarm/ref.py`` ``waterfill_f32_ref``: the same op order,
   the dummy link slot of infinite capacity, the ``1e-6`` saturation
@@ -16,6 +22,11 @@ and ``chip_smoke.py`` holds the CUDA kernels against them on the card:
   numpy does, so this version is *bit-exact* with that numpy function and
   the CUDA kernel (which pins its rounding with ``__fmul_rn`` /
   ``__fadd_rn``) is bit-exact with it.
+
+- :func:`waterfill_compact_ref` states the CUDA kernel's way through
+  the same fixed point in plain torch, for the tests: each round visits
+  only the list of active flows and the constraint slots they touch, and
+  is bit-identical to :func:`waterfill_ref`.
 
 The float64 goldens semantics stay :func:`repro_torch.core.fleet
 .waterfill_rates`, the port's copy of the engine's numpy water-fill.
@@ -53,6 +64,45 @@ def rarest_argmin_ref(
     score = torch.where(score == rowmin, jitter, score)
     pick = score.argmin(dim=1).to(torch.int32)
     return torch.where(empty, torch.full_like(pick, -1), pick)
+
+
+def select_rows_ref(
+    have: torch.Tensor,
+    jitter: torch.Tensor,
+    repl: torch.Tensor,
+    swarm_class: torch.Tensor,
+    rows: torch.Tensor,
+    other: torch.Tensor,
+    *,
+    stream: str,
+    mode: str,
+    fallback: bool,
+) -> torch.Tensor:
+    """Piece picks for ``rows`` on one stream: ``(n, P)`` bool ``have``,
+    ``(n, P)`` float32 ``jitter``, ``(P,)`` int32 replica counts ``repl``,
+    ``(P,)`` bool ``swarm_class``, ``(k,)`` int64 ``rows`` and ``other``
+    (the row's piece on its other stream, ``-1`` for none) -> ``(k,)``
+    int32 picks, index-exact with ``FleetSwarmSim._select``'s numpy
+    candidate build and ``batched_rarest``."""
+    P = have.shape[1]
+    miss = ~have[rows]  # (k, P)
+    sc = swarm_class[None, :]
+    if stream == "http":
+        if mode == "http_first":
+            cand = miss
+        else:
+            cand = miss & ~sc
+            if fallback:
+                # origin rescue for swarm-routed pieces nobody serves
+                cand = cand | (miss & sc & (repl == 0)[None, :])
+    else:
+        cand = miss & sc & (repl > 0)[None, :]
+    # a peer's two streams exclude each other's current piece
+    pid = torch.arange(P, device=have.device)
+    cand = cand & ~(pid[None, :] == other[:, None])
+    return rarest_argmin_ref(
+        cand.contiguous(), repl.to(F32), jitter[rows]
+    )
 
 
 def link_channel(nf: int, link_of=None, link_cap=None):
@@ -146,3 +196,62 @@ def waterfill_ref(
         frozen = frozen | newly
     return rate, rounds
 
+
+
+def waterfill_compact_ref(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    lnk: torch.Tensor,
+    up: torch.Tensor,
+    dn: torch.Tensor,
+    lcap: torch.Tensor,
+    active_counts: list | None = None,
+    touched_counts: list | None = None,
+) -> tuple[torch.Tensor, int]:
+    """:func:`waterfill_ref`'s contract, computed as the CUDA kernel
+    computes it: a round visits its list of active flows and the
+    constraint slots they touch (one vector ``2 nn + nlp`` long: uplinks,
+    downlinks, link slots), never the whole table. A list passed as
+    ``touched_counts`` is extended by each round's touched slots. An untouched slot is
+    what the plain version leaves it: count 0 gives ``d = inf``, which
+    never lowers the minimum; ``alloc + 0 * delta`` is ``alloc`` bit for
+    bit (``delta`` finite and ``>= 0``, ``alloc >= +0``); and it never
+    saturates."""
+    nf = src.numel()
+    dev = src.device
+    rate = torch.zeros(nf, dtype=F32, device=dev)
+    if nf == 0:
+        return rate, 0
+    nn = up.numel()
+    nlp = lcap.numel()
+    cap = torch.cat([up, dn, lcap])
+    slots = torch.stack([src.long(), nn + dst.long(), 2 * nn + lnk.long()], 1)
+    alloc = torch.zeros(cap.numel(), dtype=F32, device=dev)
+    saturated = torch.zeros(cap.numel(), dtype=torch.bool, device=dev)
+    eps = torch.tensor(1e-6, dtype=F32, device=dev)
+    live = torch.nonzero(src >= 0)[:, 0]  # padding flows pre-frozen at 0
+    rounds = 0
+    for _ in range(2 * nn + (nlp - 1) + 2):
+        if live.numel() == 0:
+            break
+        rounds += 1
+        if active_counts is not None:
+            active_counts.append(live.numel())
+        touched, count = torch.unique(slots[live], return_counts=True)
+        if touched_counts is not None:
+            touched_counts.append(touched.numel())
+        count = count.to(F32)
+        d = (cap[touched] - alloc[touched]) / count
+        delta = d.min()
+        if not bool(torch.isfinite(delta)):
+            break
+        delta = torch.clamp_min(delta, 0.0)
+        rate[live] = rate[live] + delta
+        alloc[touched] = alloc[touched] + count * delta
+        saturated[touched] = d <= delta + eps
+        stay = ~saturated[slots[live]].any(dim=1)
+        saturated[touched] = False
+        if bool(stay.all()):
+            break
+        live = live[stay]
+    return rate, rounds

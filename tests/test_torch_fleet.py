@@ -1,7 +1,11 @@
 """The port's fleet engine and device state vs the JAX package.
 
 - ``FleetDeviceState`` (started from the JAX state's arrays) tracks the
-  same incremental updates and builds the same candidates, index-exact;
+  same incremental updates and builds the same candidates, index-exact,
+  its have-matrix and jitter kept at a padded row pitch whose padding
+  never changes; ``select_rows_ref``, the plain version of K1's gathered
+  form, picks what the JAX state's ``select`` picks (the Pallas kernel in
+  interpret mode) on every stream rule and edge case;
 - the numpy backend is the float64 goldens path, copied: its
   ``FleetResult`` is identical to the reference's and it reproduces the
   ``scaling/fleet_n2000`` golden string of ``BENCH_swarm_scaling.json``;
@@ -30,7 +34,7 @@ from repro_torch.core.metainfo import MetaInfo
 from repro_torch.core.piece_selection import batched_rarest
 from repro_torch.core.scenario import ScenarioSpec
 from repro_torch.core.webseed import MirrorSpec
-from repro_torch.kernels.swarm import FleetDeviceState
+from repro_torch.kernels.swarm import FleetDeviceState, select_rows_ref
 
 ROOT = pathlib.Path(__file__).parent.parent
 SCENARIOS = ROOT / "benchmarks" / "scenarios"
@@ -134,6 +138,120 @@ def test_device_select_matches_engine_cand_build(stream, mode, fallback):
     assert got.dtype == np.int64
     np.testing.assert_array_equal(got, batched_rarest(cand, repl, jitter[rows]))
     np.testing.assert_array_equal(got, jdev.select(rows, other, **kw))
+
+
+STREAM_RULES = [
+    ("http", "swarm_first", True),
+    ("http", "swarm_first", False),
+    ("http", "http_first", False),
+    ("swarm", "swarm_first", True),
+]
+
+
+def _edge_state(rng, n, P):
+    """A seeded state with the gathered form's edge cases in it: a row that
+    holds every piece, rows missing one piece (the ``other`` of
+    :func:`_edge_rows` takes it away), replica counts at 0 (pieces 0-2:
+    the origin's fallback rescue) and near ``n``. The counts are set, not
+    summed from ``have``. Returns (have, jitter, swarm_class, repl)."""
+    jitter = rng.random((n, P), dtype=np.float32)
+    # quantized jitter forces ties down to the piece index
+    jitter[: n // 4] = (rng.integers(0, 3, (n // 4, P)) / 4.0)
+    swarm_class = rng.random(P) < 0.6
+    swarm_class[:2] = [True, False]
+    have = rng.random((n, P)) < 0.5
+    have[1] = True                     # all-masked on every stream
+    have[2] = True
+    have[2, 1] = False                 # only piece 1 (origin-routed)
+    have[3] = True
+    have[3, 5] = False                 # only piece 5
+    repl = have.sum(axis=0)
+    repl[3::4] = n - 1 - np.arange(repl[3::4].size) % 3  # near n
+    repl[5] = n - 2
+    repl[:3] = 0                       # counted as served by nobody
+    return have, jitter, swarm_class, repl
+
+
+def _edge_rows(rng, n, P, k):
+    """``k`` rows with repeats (always rows 1-3 among them) and their
+    ``other``: -1, a random piece, or the row's only candidate."""
+    rows = rng.integers(0, n, k)
+    rows[: min(k, 3)] = [1, 2, 3][: min(k, 3)]
+    other = np.where(rng.random(k) < 0.5, rng.integers(0, P, k), -1)
+    other[rows == 2] = np.where(rng.random(int((rows == 2).sum())) < 0.5,
+                                1, -1)
+    other[rows == 3] = np.where(rng.random(int((rows == 3).sum())) < 0.5,
+                                5, -1)
+    return rows, other
+
+
+@pytest.mark.parametrize("stream,mode,fallback", STREAM_RULES)
+@pytest.mark.parametrize("n,P", [(40, 45), (24, 16), (30, 37)])
+def test_select_rows_ref_matches_jax_state_select(stream, mode, fallback, n,
+                                                  P):
+    rng = np.random.default_rng(31 + n + P)
+    have, jitter, swarm_class, repl = _edge_state(rng, n, P)
+    jdev = JaxFleetDeviceState(jitter, swarm_class)
+    rows_h, pieces_h = np.nonzero(have)
+    jdev.add_pieces(rows_h, pieces_h)
+    jdev.repl = jdev.repl + np.asarray(repl - have.sum(axis=0),
+                                       dtype=np.int32)
+    np.testing.assert_array_equal(np.asarray(jdev.repl), repl)
+    tdev = FleetDeviceState.from_arrays(have, jitter, repl, swarm_class,
+                                        device="cpu")
+    kw = dict(stream=stream, mode=mode, fallback=fallback)
+    for k in (1, 7, 300):
+        rows, other = _edge_rows(rng, n, P, k)
+        got = select_rows_ref(
+            tdev.have, tdev.jitter, tdev.repl, tdev.swarm_class,
+            torch.from_numpy(rows), torch.from_numpy(other), **kw)
+        assert got.dtype == torch.int32 and got.shape == (k,)
+        want = jdev.select(rows, other, **kw)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(tdev.select(rows, other, **kw), want)
+        # rows holding every piece pick nothing; a row's only candidate
+        # taken by its other stream leaves it nothing either
+        got = got.numpy()
+        assert (got[rows == 1] == -1).all()
+        assert (got[(rows == 2) & (other == 1)] == -1).all()
+        assert (got[(rows == 3) & (other == 5)] == -1).all()
+
+
+@pytest.mark.parametrize("P", [16, 37, 130])
+def test_padded_state_tracks_jax_state(P):
+    rng = np.random.default_rng(40 + P)
+    n = 30
+    jitter = rng.random((n, P), dtype=np.float32)
+    swarm_class = rng.random(P) < 0.7
+    jdev = JaxFleetDeviceState(jitter, swarm_class)
+    tdev = FleetDeviceState(jitter, swarm_class, device="cpu")
+    pitch = -(-P // 16) * 16
+    assert tdev.pitch == pitch
+    assert tdev.have.shape == tdev.jitter.shape == (n, P)
+    assert tdev.have.stride() == tdev.jitter.stride() == (pitch, 1)
+    have = np.zeros((n, P), dtype=bool)
+    for step in range(5):
+        rows, pieces = _unique_pairs(rng, have, int(rng.integers(1, 40)))
+        have[rows, pieces] = True
+        jdev.add_pieces(rows, pieces)
+        tdev.add_pieces(rows, pieces)
+        if step == 2:
+            drop = np.unique(rng.integers(0, n, 4))
+            jdev.drop_rows(drop)
+            tdev.drop_rows(drop)
+    np.testing.assert_array_equal(tdev.have.numpy(), np.asarray(jdev.have))
+    np.testing.assert_array_equal(tdev.repl.numpy(), np.asarray(jdev.repl))
+    np.testing.assert_array_equal(tdev.jitter.numpy(), jitter)
+    # the padding columns of the buffers behind the views never change
+    full_have = tdev.have.as_strided((n, pitch), (pitch, 1))
+    full_jit = tdev.jitter.as_strided((n, pitch), (pitch, 1))
+    assert not full_have[:, P:].any() and not full_jit[:, P:].any()
+    rows = rng.integers(0, n, 25)
+    other = np.where(rng.random(25) < 0.5, rng.integers(0, P, 25), -1)
+    for stream, mode, fallback in STREAM_RULES:
+        kw = dict(stream=stream, mode=mode, fallback=fallback)
+        np.testing.assert_array_equal(tdev.select(rows, other, **kw),
+                                      jdev.select(rows, other, **kw))
 
 
 # ------------------------------------------------------------------ numpy backend

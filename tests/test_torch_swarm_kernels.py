@@ -9,7 +9,11 @@ contracts (``tests/test_kernels_swarm.py``):
 - water-filling is *bit-exact* against the float32 numpy oracle
   ``waterfill_f32_ref`` (both round every multiply and add on its own),
   within ``1e-4`` of the Pallas kernel (XLA:CPU contracts its updates into
-  FMAs) and within ``1e-3`` of the float64 ``waterfill_rates``.
+  FMAs) and within ``1e-3`` of the float64 ``waterfill_rates``;
+- the compacted water-fill (``waterfill_compact_ref``: active-flow lists
+  and touched slots only, the CUDA kernel's way through the fixed point)
+  is bit-identical to ``waterfill_ref``, rates, rounds and active flows
+  per round.
 
 The CUDA kernels themselves are held against these versions on the card
 by ``chip_smoke.py``.
@@ -26,11 +30,15 @@ from repro.kernels.swarm import rarest_argmin as jax_rarest_argmin
 from repro.kernels.swarm import waterfill_f32_ref
 from repro_torch.core.fleet import waterfill_rates as torch_waterfill_rates
 from repro_torch.kernels.swarm import (
+    FleetDeviceState,
     fleet_waterfill,
+    flow_table,
     link_channel,
     rarest_argmin,
     rarest_argmin_cuda,
+    select_rows_cuda,
     waterfill,
+    waterfill_compact_ref,
     waterfill_cuda,
     waterfill_ref,
 )
@@ -242,3 +250,136 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         waterfill_cuda(z, z, z, torch.ones(1), torch.ones(1), torch.ones(1))
+
+
+# ------------------------------------------------------------------ compacted water-fill
+
+
+def _compact_case(name, rng):
+    """A seeded flow table that exercises one part of the exactness
+    argument of the compacted water-fill."""
+    nf, nn = 400, 60
+    src, dst, up, dn, lof, lcap = _random_topology(rng, nf, nn)
+    if name == "dummy_slot_only":
+        pass  # every flow unlinked: all of them on the one dummy slot
+    elif name == "inf_and_zero_caps":
+        up[rng.random(nn) < 0.2] = np.inf
+        dn[rng.random(nn) < 0.3] = np.inf
+        up[rng.random(nn) < 0.1] = 0.0
+        dn[rng.random(nn) < 0.1] = 0.0
+    elif name == "all_caps_inf":
+        up[:] = np.inf
+        dn[:] = np.inf  # delta is never finite: one round, rates 0
+    elif name == "padding":
+        src[::5] = dst[::5] = -1
+    elif name == "spine":
+        lof = np.where(rng.random(nf) < 0.6, rng.integers(0, 3, nf), -1)
+        lcap = rng.uniform(5.0, 60.0, 3)
+    elif name == "spine_padding_inf":
+        lof = np.where(rng.random(nf) < 0.5, 0, -1)
+        lcap = np.array([np.inf])
+        src[-9:] = dst[-9:] = -1
+        dn[rng.random(nn) < 0.3] = np.inf
+    return flow_table(src, dst, up, dn, lof, lcap, device="cpu")
+
+
+@pytest.mark.parametrize("name", [
+    "dummy_slot_only", "inf_and_zero_caps", "all_caps_inf", "padding",
+    "spine", "spine_padding_inf",
+])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compacted_waterfill_bit_identical_to_plain(name, seed):
+    args = _compact_case(name, np.random.default_rng(700 + seed))
+    act_plain, act_compact = [], []
+    plain, r_plain = waterfill_ref(*args, active_counts=act_plain)
+    compact, r_compact = waterfill_compact_ref(*args,
+                                               active_counts=act_compact)
+    assert torch.equal(compact, plain)
+    assert (r_compact, act_compact) == (r_plain, act_plain)
+    assert r_plain >= 1
+
+
+# ------------------------------------------------------------------ wrapper guards
+
+
+def _refuses(fn, match):
+    launches = select_rows_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        fn()
+    assert select_rows_cuda.launches == launches
+
+
+def test_select_rows_cuda_refuses_before_any_build_or_launch(monkeypatch):
+    # the checks run before the library is built: a build here would fail
+    # on the missing toolkit with a RuntimeError, not these ValueErrors
+    from repro_torch.kernels.swarm import kernel
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(kernel, "_lib", no_build)
+    rng = np.random.default_rng(8)
+    n, P = 20, 37
+    st = FleetDeviceState(rng.random((n, P), dtype=np.float32),
+                          rng.random(P) < 0.5, device="cpu")
+    assert st.pitch == 48 and st.have.stride() == (48, 1)
+    rows = torch.arange(5, dtype=torch.int64)
+    other = torch.full((5,), -1, dtype=torch.int64)
+    kw = dict(stream="http", mode="swarm_first", fallback=True)
+    state = (st.have, st.jitter, st.repl, st.swarm_class)
+
+    _refuses(lambda: select_rows_cuda(*state, rows, other, **kw),
+             "CUDA tensors")
+    _refuses(lambda: select_rows_cuda(*state, rows.int(), other, **kw),
+             "rows has dtype")
+    _refuses(lambda: select_rows_cuda(*state, rows, other.int(), **kw),
+             "other has dtype")
+    _refuses(lambda: select_rows_cuda(
+        st.have, st.jitter, st.repl.long(), st.swarm_class, rows, other,
+        **kw), "repl has dtype")
+    _refuses(lambda: select_rows_cuda(
+        st.have.contiguous(), st.jitter, st.repl, st.swarm_class, rows,
+        other, **kw), "pitch")
+    _refuses(lambda: select_rows_cuda(
+        st.have, st.jitter.double(), st.repl, st.swarm_class, rows, other,
+        **kw), "jitter has dtype")
+    for bad_rows, bad_other in (([0, n], [-1, -1]), ([-1, 0], [-1, -1]),
+                                ([0, 1], [P, -1]), ([0, 1], [-2, 0])):
+        _refuses(lambda: select_rows_cuda(
+            *state, torch.tensor(bad_rows), torch.tensor(bad_other), **kw),
+            r"rows must lie in \[0, 20\) and other in \[-1, 37\)")
+    _refuses(lambda: select_rows_cuda(
+        *state, rows, other, stream="tcp", mode="swarm_first",
+        fallback=True), "unknown stream")
+
+
+@pytest.mark.parametrize("bad_rows,bad_other", [
+    ([0, 20], [-1, -1]), ([-1, 0], [-1, -1]), ([0, 1], [37, -1]),
+    ([0, 1], [-2, 0]),
+])
+def test_device_state_checks_index_ranges_on_the_host(monkeypatch, bad_rows,
+                                                      bad_other):
+    # FleetDeviceState.select checks rows and other on its host arrays and
+    # tells the dispatch so: the CUDA wrapper then needs no synchronisation
+    # to check them
+    from repro_torch.kernels.swarm import ops
+
+    calls = []
+
+    def dispatch(*args, **kw):
+        calls.append(kw)
+        return torch.full((args[4].numel(),), -1, dtype=torch.int32)
+
+    monkeypatch.setattr(ops, "select_rows", dispatch)
+    rng = np.random.default_rng(9)
+    n, P = 20, 37
+    st = FleetDeviceState(rng.random((n, P), dtype=np.float32),
+                          rng.random(P) < 0.5, device="cpu")
+    kw = dict(stream="http", mode="swarm_first", fallback=True)
+    with pytest.raises(ValueError,
+                       match=r"rows must lie in \[0, 20\) and other in "
+                             r"\[-1, 37\)"):
+        st.select(np.array(bad_rows), np.array(bad_other), **kw)
+    assert not calls
+    st.select(np.array([0, n - 1]), np.array([-1, P - 1]), **kw)
+    assert calls == [dict(kw, ranges_checked=True)]
