@@ -9,10 +9,10 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 1. the card's name and power limit (``nvidia-smi``), torch version, and
    compute capability, which must be 9.0;
 2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
-   ``nvcc`` for each source, all started together, and the swarm, K4 and
-   K5 sources once more beside them under ``-Xptxas -v``: no K1, K2, K4
-   or K5 kernel may spill (K2's registers are logged with the grid it
-   chose);
+   ``nvcc`` for each source, all started together, and the swarm, K4, K5
+   and K6 sources once more beside them under ``-Xptxas -v``: no K1, K2,
+   K4, K5 or K6 kernel may spill (K2's registers are logged with the grid
+   it chose, K6's with their shared memory);
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
    versions, index-exact, in both forms: the dense form (``(k, P)``
    candidates) at the fleet path's shape and on edge cases, and the
@@ -58,11 +58,15 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    serving shape against the float32 SIMT kernel's on the same inputs
    widened (the design that the tensor-core route replaced) and the plain
    version's;
-7. K6 (RG-LRU scan) on the card against its plain version, bit for bit:
-   the reference's four cases, a ragged sequence and width, and the
-   recurrentgemma serving shape (B 4, S 4608, W 2560) with long-memory
-   decays and a non-zero initial state; a control restarting every 256
-   steps must differ; its time there against its plain version's;
+7. K6 (RG-LRU scan) on the card against its plain version, bit for bit,
+   the ring kernel, the replaced one-thread-a-chain kernel and
+   ``ops.rglru_scan`` alike: the reference's four cases, a ragged
+   sequence and width, and the recurrentgemma serving shape (B 4, S 4608,
+   W 2560) with long-memory decays and a non-zero initial state; controls
+   restarting every 256 steps (the reference's time block) and every 32
+   (the ring's tile) must differ; the two kernels timed there in turns,
+   one launch at a time and 10 back to back, beside the plain version, the
+   bound and a ``torch.add`` of the same bytes;
 8. the fleet path: ``fleet_scaling.json`` as a 1,000,000-peer flash crowd
    at ``dt = 16`` through ``ScenarioSpec.build("fleet").run()`` exactly as
    committed apart from ``n`` and ``dt`` (a file naming no backend runs the
@@ -110,8 +114,8 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     and 8 local-attention layers, 4,608-token prompts past the 2,048
     window), at full width from seed 14 with the decay parameters redrawn
     from the published init ranges, each through ``build_model`` and
-    ``ServeEngine.serve_queue`` as in phase 11: launches (K5 96; K6 36 and
-    K4 16), the same tokens twice, the replayed decode; mamba2's bfloat16
+    ``ServeEngine.serve_queue`` as in phase 11: launches (K5 96; K6 36,
+    the replaced K6 0, and K4 16), the same tokens twice, the replayed decode; mamba2's bfloat16
     prefill as served, its logits and its first ssd block through K5
     against the plain version, each within a band from chip readings that
     the no-carry and unsplit-operand controls must fall outside; on the
@@ -216,8 +220,9 @@ LOGITS_BAND_F32 = 5e-5
 LOGITS_BAND_BF16 = 8.5e-3
 DECODE_BAND_F32 = 4e-5
 # K6: the reference's four cases (tests/test_kernels.py:44-53, b, s, w), a
-# sequence and width that are no multiple of the kernel's unroll (16) and
-# block (64), and the recurrentgemma serving shape with long-memory decays
+# sequence and width that are no multiple of the ring's tile (32 steps) and
+# CTA (32 channels) nor of the replaced kernel's unroll (16) and block (64),
+# and the recurrentgemma serving shape with long-memory decays
 K6_CASES = [(2, 64, 32), (1, 300, 100), (3, 512, 256), (1, 16, 8)]
 K6_RAGGED = (2, 1237, 333)
 K6_SERVING = (4, 4608, 2560)
@@ -322,6 +327,15 @@ def median_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def steady_ms(fn, launches: int = 10, reps: int = 5) -> float:
+    """Median over ``reps`` of the wall of ``launches`` back-to-back runs
+    of ``fn`` between CUDA events, divided by ``launches``: the device time
+    of one run with the queue kept full, without the host's time to reach
+    the first launch, which ``median_ms`` counts."""
+    return median_ms(lambda: [fn() for _ in range(launches)],
+                     reps=reps) / launches
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S,
@@ -1161,65 +1175,47 @@ def check_k4_ptxas(report: str, head_dims) -> dict:
     return found
 
 
-def check_k5_ptxas(report: str) -> dict:
-    """Registers and spilled bytes of each K5 kernel from ``-Xptxas -v``'s
-    ``report``: the SIMT kernel and the tensor-core route's, as
-    {"kernel": [registers, spill bytes]}; fails if either spills (the
-    tensor-core kernel holds 64 float32 of h a thread)."""
-    found, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            entry = m.group(1)
-            name = ("tensor_core" if "tc12chunk_kernel" in entry else
-                    "simt" if "simt16ssd_chunk_kernel" in entry else entry)
-            found[name] = [0, 0]
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            found[name][0] = int(m.group(1))
-        elif name and (m := re.search(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            found[name][1] = int(m.group(1)) + int(m.group(2))
-    if sorted(found) != ["simt", "tensor_core"]:
-        fail(f"K5 -Xptxas -v: kernels {sorted(found)}, the SIMT and the "
-             f"tensor-core kernel expected:\n{report}")
-    spills = {n: v[1] for n, v in found.items() if v[1]}
-    if spills:
-        fail(f"K5 -Xptxas -v: spilled bytes {spills}")
-    log("K5 -Xptxas -v, registers a thread, no spill: "
-        + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
-    return found
-
-
+# each kernel of a source as -Xptxas -v names it (a part of its mangled
+# name) -> its label in the log and the record
 SWARM_KERNELS = {"rarest_dense_kernelILb1E": "K1 dense, 32 staged rows a CTA",
                  "rarest_dense_kernelILb0E": "K1 dense, a warp a row",
                  "rarest_gathered_kernel": "K1 gathered",
                  "waterfill_kernel": "K2 persistent"}
+K5_KERNELS = {"tc12chunk_kernel": "tensor_core",
+              "simt16ssd_chunk_kernel": "simt"}
+K6_KERNELS = {"17rglru_scan_kernel": "ring",
+              "26rglru_scan_replaced_kernel": "replaced"}
 
 
-def check_swarm_ptxas(report: str) -> dict:
-    """Registers and spilled bytes of each K1 and K2 kernel from
-    ``-Xptxas -v``'s ``report``, as {"kernel": [registers, spill bytes]};
-    fails if any of them spills."""
+def check_ptxas(what: str, report: str, kernels: dict) -> dict:
+    """Registers, spilled bytes and static shared memory of each kernel
+    of ``kernels`` (a part of its mangled name -> label) from ``-Xptxas
+    -v``'s ``report`` of one source, as {label: [registers, spill bytes,
+    static shared memory bytes]}; fails unless the source holds exactly
+    those kernels, or if any of them spills."""
     found, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((v for key, v in SWARM_KERNELS.items()
+            name = next((v for key, v in kernels.items()
                          if key in m.group(1)), m.group(1))
-            found[name] = [0, 0]
+            found[name] = [0, 0, 0]
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             found[name][0] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                found[name][2] = int(sm.group(1))
         elif name and (m := re.search(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             found[name][1] = int(m.group(1)) + int(m.group(2))
-    if sorted(found) != sorted(SWARM_KERNELS.values()):
-        fail(f"swarm -Xptxas -v: kernels {sorted(found)}, expected "
-             f"{sorted(SWARM_KERNELS.values())}:\n{report}")
+    if sorted(found) != sorted(kernels.values()):
+        fail(f"{what} -Xptxas -v: kernels {sorted(found)}, expected "
+             f"{sorted(kernels.values())}:\n{report}")
     spills = {n: v[1] for n, v in found.items() if v[1]}
     if spills:
-        fail(f"swarm -Xptxas -v: spilled bytes {spills}")
-    log("swarm -Xptxas -v, registers a thread, no spill: "
-        + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
+        fail(f"{what} -Xptxas -v: spilled bytes {spills}")
+    log(f"{what} -Xptxas -v, no spill; registers a thread (static shared "
+        "memory bytes): " + ", ".join(f"{n} {v[0]} ({v[2]})"
+                                      for n, v in found.items()))
     return found
 
 
@@ -1418,13 +1414,13 @@ def check_k4(k4, dev):
 # ------------------------------------------------------------------ K6
 
 
-def rglru_restarting(k6, a, b, h0):
-    """The control for K6: its plain version restarted from zero every
-    ``K6_RESTART`` steps after the first block (a kernel that drops the
-    carry between the reference's time blocks)."""
+def rglru_restarting(k6, a, b, h0, every=K6_RESTART):
+    """A control for K6: its plain version restarted from zero every
+    ``every`` steps after the first block (a kernel that drops the carry
+    between the reference's time blocks, ``K6_RESTART``, or between its own
+    tiles)."""
     import torch
 
-    every = K6_RESTART
     return torch.cat([
         k6.rglru_scan_ref(a[:, t:t + every], b[:, t:t + every],
                           h0 if t == 0 else None)
@@ -1432,12 +1428,17 @@ def rglru_restarting(k6, a, b, h0):
 
 
 def check_k6(k6, dev):
-    """K6 vs its plain version on the card, bit for bit: the reference's
-    four cases, a ragged sequence and width, and the serving shape with
-    long-memory decays and a non-zero h0; returns the kernel's record."""
+    """K6 vs its plain version on the card, bit for bit, the ring kernel
+    and the replaced one alike: the reference's four cases, a ragged
+    sequence and width, and the serving shape with long-memory decays and a
+    non-zero h0; controls restarting every ``K6_RESTART`` steps and every
+    tile of the ring must differ. Times both kernels at the serving shape
+    in turns; returns the ring kernel's record."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    ring = k6.kernel.ring_config()
+    tile = ring["steps"]
 
     def inputs(b, s, w, lo, hi):
         a = torch.rand((b, s, w), generator=gen, device=dev) * (hi - lo) + lo
@@ -1448,56 +1449,103 @@ def check_k6(k6, dev):
     cases = [(c, 0.3, 0.999) for c in K6_CASES]
     cases.append((K6_RAGGED, 0.3, 0.999))
     cases.append((K6_SERVING, *K6_LONG_MEMORY))
+    worst = 0.0
     for (b, s, w), lo, hi in cases:
         a, x, h0 = inputs(b, s, w, lo, hi)
-        got = k6.rglru_scan_cuda(a, x, h0)
         want = k6.rglru_scan_ref(a, x, h0)
-        torch.cuda.synchronize()
         what = f"(B, S, W) = {(b, s, w)}, a in U({lo}, {hi})"
-        if not torch.equal(got, want):
-            fail(f"K6 {what}: {int((got != want).sum())} values differ from "
-                 f"the plain version (max |diff| "
-                 f"{float((got - want).abs().max())})")
-        public = k6.rglru_scan(a, x, h0)
-        if not torch.equal(public, want):
-            fail(f"K6 {what}: ops.rglru_scan differs from the plain version")
-        note = ""
-        if s > K6_RESTART:
-            control = rglru_restarting(k6, a, x, h0)
+        for name, got in (("ring kernel", k6.rglru_scan_cuda(a, x, h0)),
+                          ("replaced kernel",
+                           k6.rglru_scan_replaced_cuda(a, x, h0)),
+                          ("ops.rglru_scan", k6.rglru_scan(a, x, h0))):
+            torch.cuda.synchronize()
+            worst = max(worst, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"K6 {what}: the {name} differs from the plain version "
+                     f"in {int((got != want).sum())} values (max |diff| "
+                     f"{float((got - want).abs().max())})")
+            del got
+        notes = []
+        for every in (K6_RESTART, tile):
+            if s <= every:
+                continue
+            control = rglru_restarting(k6, a, x, h0, every)
             if torch.equal(control, want):
-                fail(f"K6 {what}: the restarting control equals the plain "
-                     "version")
-            note = (f"; the control restarting every {K6_RESTART} steps "
-                    f"reads max |diff| "
-                    f"{float((control - want).abs().max()):.4g}, relative "
-                    f"L2 {rel_l2(control, want):.4g}")
+                fail(f"K6 {what}: the control restarting every {every} "
+                     "steps equals the plain version")
+            notes.append(f"restarting every {every} steps reads max |diff| "
+                         f"{float((control - want).abs().max()):.4g}, "
+                         f"relative L2 {rel_l2(control, want):.4g}")
             del control
-        log(f"K6 {what}: bit-exact (also via ops.rglru_scan){note}")
-        del a, x, h0, got, want, public
+        log(f"K6 {what}: the ring kernel, the replaced kernel and "
+            f"ops.rglru_scan bit-exact"
+            + "".join(f"; the control {n}" for n in notes))
+        del a, x, h0, want
 
     b, s, w = K6_SERVING
     a, x, h0 = inputs(b, s, w, *K6_LONG_MEMORY)
-    ms = median_ms(lambda: k6.rglru_scan_cuda(a, x, h0), reps=20)
+    # in turns: ring, replaced, replaced, ring; each one launch at a time
+    # (``ms``, as K1-K5 are timed) and 10 back to back (``steady_ms``: the
+    # device time without the wrapper's host time before each launch)
+    single = {k6.rglru_scan_cuda: [], k6.rglru_scan_replaced_cuda: []}
+    steady = {k6.rglru_scan_cuda: [], k6.rglru_scan_replaced_cuda: []}
+    for fn in (k6.rglru_scan_cuda, k6.rglru_scan_replaced_cuda,
+               k6.rglru_scan_replaced_cuda, k6.rglru_scan_cuda):
+        call = functools.partial(fn, a, x, h0)
+        single[fn].append(median_ms(call, reps=20))
+        steady[fn].append(steady_ms(call))
+    ms, replaced_ms = (statistics.median(single[fn])
+                       for fn in (k6.rglru_scan_cuda,
+                                  k6.rglru_scan_replaced_cuda))
+    ring_steady_ms, replaced_steady_ms = (
+        statistics.median(steady[fn])
+        for fn in (k6.rglru_scan_cuda, k6.rglru_scan_replaced_cuda))
     plain_ms = median_ms(lambda: k6.rglru_scan_ref(a, x, h0), reps=3)
+    # the same bytes as one streaming pass (a and b read, one tensor
+    # written): what the card reaches without a recurrence; not K6's function
+    out = torch.empty_like(a)
+    add_ms = steady_ms(lambda: torch.add(a, x, out=out))
     # a and b read once, h0 read once, h written once; a multiply and an
     # add an element
     nbytes = 4 * (3 * a.numel() + h0.numel())
     bound_ms, bound_by = bound(nbytes, 2 * a.numel())
-    log(f"K6 at the serving shape {(b, s, w)}: {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{nbytes / ms / 1e9:.1f} GB/s achieved)")
+
+    def rates(t):
+        return f"{t:.4f} ms, {nbytes / t / 1e6:.1f} GB/s, " \
+               f"{100 * bound_ms / t:.1f} % of the bound"
+
+    log(f"K6 at the serving shape {(b, s, w)} ({ring['lanes']} channels and "
+        f"one warp a CTA, tiles of {ring['steps']} steps, {ring['stages']} "
+        f"stages, {ring['ring_bytes']} bytes of ring), bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB), plain "
+        f"{plain_ms:.3f} ms; one launch at a time: the ring kernel "
+        f"{rates(ms)} (in turns "
+        f"{[round(t, 4) for t in single[k6.rglru_scan_cuda]]}), the "
+        f"replaced kernel {rates(replaced_ms)} "
+        f"({[round(t, 4) for t in single[k6.rglru_scan_replaced_cuda]]}); "
+        f"10 launches back to back: the ring kernel {rates(ring_steady_ms)}"
+        f", the replaced kernel {rates(replaced_steady_ms)}; torch.add of a "
+        f"and b (the same bytes streamed, back to back) {add_ms:.4f} ms")
     return {
         "name": "rglru_scan",
         "route": "cuda",
         "source": RGLRU_SOURCE,
         "replaces": "src/repro/kernels/rglru/kernel.py:25",
-        "max_abs_err": 0.0,
-        "matched": True,
+        "max_abs_err": worst,
+        "matched": worst == 0.0,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "replaced_ms": replaced_ms,
+        "steady_ms": ring_steady_ms,
+        "replaced_steady_ms": replaced_steady_ms,
+        "bound_share": bound_ms / ms,
+        "replaced_bound_share": bound_ms / replaced_ms,
+        "gbps": nbytes / ms / 1e6,
+        "replaced_gbps": nbytes / replaced_ms / 1e6,
+        "same_bytes_add_ms": add_ms,
         "shape": [b, s, w],
         "dtype": "float32",
     }
@@ -2508,16 +2556,21 @@ def main() -> int:
     require_hopper(dev)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        # the swarm, K4 and K5 sources once more under -Xptxas -v, beside
-        # the builds
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        # the swarm, K4, K5 and K6 sources once more under -Xptxas -v,
+        # beside the builds
         reports = [pool.submit(nvcc.ptxas_report, m.kernel.SOURCE,
-                               m.kernel.NVCC_FLAGS) for m in (kernels, k4, k5)]
+                               m.kernel.NVCC_FLAGS)
+                   for m in (kernels, k4, k5, k6)]
         libs = nvcc.build(*((m.kernel.SOURCE, m.kernel.NVCC_FLAGS)
                             for m in (kernels, k3, k4, k5, k6)))
-        swarm_ptxas = check_swarm_ptxas(reports[0].result())
+        swarm_ptxas = check_ptxas("swarm", reports[0].result(),
+                                  SWARM_KERNELS)
         k4_ptxas = check_k4_ptxas(reports[1].result(), k4.kernel.HEAD_DIMS)
-        k5_ptxas = check_k5_ptxas(reports[2].result())
+        k5_ptxas = check_ptxas("K5", reports[2].result(), K5_KERNELS)
+        k6_ptxas = check_ptxas("K6", reports[3].result(), K6_KERNELS)
+    log(f"K6's ring takes {k6.kernel.ring_config()['ring_bytes']} bytes of "
+        "dynamic shared memory a CTA, which ptxas does not count")
     log(f"build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -2530,6 +2583,7 @@ def main() -> int:
         k5_record = check_k5(k5, dev)
         k5_record["ptxas"] = k5_ptxas
         k6_record = check_k6(k6, dev)
+        k6_record["ptxas"] = k6_ptxas
     with phase("fleet path and K2"):
         launches, by_form, tables, outcome = run_main_path(kernels)
         k2 = check_k2(kernels, dev, tables)
@@ -2545,7 +2599,9 @@ def main() -> int:
     log("broadcast path outcome: " + json.dumps(broadcast))
     counters = {"flash_attention": k4.flash_attention_cuda,
                 "ssd_chunked": k5.ssd_chunked_cuda,
-                "rglru_scan": k6.rglru_scan_cuda}
+                "rglru_scan": k6.rglru_scan_cuda,
+                # no block kind launches the replaced K6: 0 on every path
+                "rglru_scan_replaced": k6.rglru_scan_replaced_cuda}
     with phase(f"serving path {SERVE_ARCH} with its checks"):
         serving = run_serving_path((k4, k5, k6), counters)
     log("serving path outcome: " + json.dumps(serving))
@@ -2561,6 +2617,8 @@ def main() -> int:
     k4_record["launches"] = paths[SERVE_ARCH]["flash_attention"]
     k5_record["launches"] = paths["mamba2_1_3b"]["ssd_chunked"]
     k6_record["launches"] = paths["recurrentgemma_2b"]["rglru_scan"]
+    k6_record["replaced_launches_by_path"] = {
+        arch: counts["rglru_scan_replaced"] for arch, counts in paths.items()}
     for record in (k4_record, k5_record, k6_record):
         record["launches_by_path"] = {
             arch: counts[record["name"]] for arch, counts in paths.items()}

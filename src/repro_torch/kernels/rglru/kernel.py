@@ -1,6 +1,6 @@
-"""CUDA RG-LRU scan (K6) for Hopper: build, binding and launch wrapper.
+"""CUDA RG-LRU scan (K6) for Hopper: build, binding and launch wrappers.
 
-The kernel lives in ``csrc/rglru_kernels.cu`` behind a plain C interface,
+The kernels live in ``csrc/rglru_kernels.cu`` behind a plain C interface,
 built and loaded at first use by :mod:`repro_torch.kernels.nvcc`
 (``sm_90a``, ``ctypes``). Nothing is compiled or loaded when this module is
 imported.
@@ -8,13 +8,27 @@ imported.
 :func:`rglru_scan_cuda` replaces ``repro/kernels/rglru/kernel.py``
 ``_rglru_kernel`` / ``rglru_scan_bsw`` and has its contract: ``h_t = a_t ·
 h_{t-1} + b_t`` from ``h0`` over float32 ``(B, S, W)``, the whole
-trajectory out. Unlike the Pallas kernel it needs no time-block or lane
-multiples: one thread walks one channel's whole sequence and the grid
-masks the ragged channel edge. It takes contiguous float32 CUDA tensors,
-allocates the output with torch, launches on torch's current stream, and
-raises when the C call returns a CUDA error. Its plain-integer
-``launches`` counter goes up by one where it launches the kernel, and
-nowhere else.
+trajectory out. The bound is bytes (12 an element), and the design keeps
+enough of them in flight to reach it: one warp a CTA owns one batch row
+and 32 channels and streams tiles of 32 steps of ``a`` and ``b`` through
+an 8-stage ``cp.async`` ring in shared memory (64 KB), so that 7 tiles,
+56 KB, are in flight while one is walked; :func:`ring_config` reads those
+constants from the built library, where the C entry sets the grid from
+them. Each step is the same rounded product and then rounded
+sum in time order, so the kernel equals the sequential plain version bit
+for bit. Unlike the Pallas kernel it needs no time-block or lane
+multiples: the kernel masks the ragged time and channel edges.
+
+:func:`rglru_scan_replaced_cuda` is the design that the ring replaced
+(one thread a chain, 16 steps of loads in registers), kept as a control
+for ``chip_smoke.py`` to time beside it; ``ops.rglru_scan`` never reaches
+it. It goes in the next slice that touches K6 (``ROADMAP.md``).
+
+Both take contiguous float32 CUDA tensors, allocate the output with torch,
+launch on torch's current stream, and raise when the C call returns a
+CUDA error (the C entries refuse a batch outside 1-65,535 or an empty
+``s`` or ``w``). Each has its own plain-integer ``launches`` counter, which
+goes up by one where its kernel was launched, and nowhere else.
 """
 
 from __future__ import annotations
@@ -38,16 +52,31 @@ _I64 = ctypes.c_int64
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE, NVCC_FLAGS)
-    lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
-    lib.rglru_scan_launch.restype = ctypes.c_int
+    for entry in (lib.rglru_scan_launch, lib.rglru_scan_replaced_launch):
+        entry.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
+        entry.restype = ctypes.c_int
+    lib.rglru_scan_config.argtypes = [_P]
+    lib.rglru_scan_config.restype = None
     lib.rglru_error_string.argtypes = [ctypes.c_int]
     lib.rglru_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
+@functools.lru_cache(maxsize=None)
+def ring_config() -> dict[str, int]:
+    """The ring kernel's constants as the built library reports them:
+    ``lanes`` (channels a CTA, one warp), ``steps`` (time steps a tile),
+    ``stages`` (tiles in the ring) and ``ring_bytes`` (its dynamic shared
+    memory). Builds the library on first use."""
+    got = (ctypes.c_int64 * 4)()
+    _lib().rglru_scan_config(ctypes.addressof(got))
+    return dict(zip(("lanes", "steps", "stages", "ring_bytes"), got))
+
+
+def _require(who: str, t: torch.Tensor, name: str, shape: tuple,
+             device) -> None:
     if t.device.type != "cuda":
-        raise ValueError(f"rglru_scan_cuda takes CUDA tensors ({name} is on "
+        raise ValueError(f"{who} takes CUDA tensors ({name} is on "
                          f"{t.device})")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, a on {device}")
@@ -58,36 +87,54 @@ def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
                          f"{shape} (got {tuple(t.shape)})")
 
 
-def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
-                    h0: torch.Tensor | None = None) -> torch.Tensor:
-    """``(B, S, W)`` float32 decays ``a`` and increments ``b``, ``(B, W)``
-    float32 ``h0`` (None: zeros) -> the ``(B, S, W)`` float32 trajectory,
-    equal bit for bit to
-    :func:`~repro_torch.kernels.rglru.ref.rglru_scan_ref` on the card."""
+def _launch(wrapper, entry: str, a: torch.Tensor, b: torch.Tensor,
+            h0: torch.Tensor | None) -> torch.Tensor:
+    """Check the operands, launch the C entry ``entry`` (unless the output
+    is empty) and count the launch on ``wrapper``; returns the output."""
     if a.dim() != 3:
         raise ValueError(f"a must be (B, S, W) (got {tuple(a.shape)})")
     bsz, s, w = a.shape
-    _require(a, "a", (bsz, s, w), a.device)
-    _require(b, "b", (bsz, s, w), a.device)
+    who = wrapper.__name__
+    _require(who, a, "a", (bsz, s, w), a.device)
+    _require(who, b, "b", (bsz, s, w), a.device)
     if h0 is not None:
-        _require(h0, "h0", (bsz, w), a.device)
+        _require(who, h0, "h0", (bsz, w), a.device)
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
     require_hopper(a.device)
     lib = _lib()
     with torch.cuda.device(a.device):
-        err = lib.rglru_scan_launch(
+        err = getattr(lib, entry)(
             a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
             out.data_ptr(), bsz, s, w,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
-    rglru_scan_cuda.launches += 1
     if err != 0:
         msg = lib.rglru_error_string(err).decode()
-        raise RuntimeError(f"rglru scan kernel failed: CUDA error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"rglru scan kernel ({entry}) failed: CUDA error "
+                           f"{err} ({msg})")
+    wrapper.launches += 1
     return out
 
 
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor | None = None) -> torch.Tensor:
+    """``(B, S, W)`` float32 decays ``a`` and increments ``b``, ``(B, W)``
+    float32 ``h0`` (None: zeros) -> the ``(B, S, W)`` float32 trajectory,
+    equal bit for bit to
+    :func:`~repro_torch.kernels.rglru.ref.rglru_scan_ref` on the card.
+    The ring kernel."""
+    return _launch(rglru_scan_cuda, "rglru_scan_launch", a, b, h0)
+
+
+def rglru_scan_replaced_cuda(a: torch.Tensor, b: torch.Tensor,
+                             h0: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`rglru_scan_cuda`'s contract through the replaced
+    one-thread-a-chain kernel: a control, never on a model's path."""
+    return _launch(rglru_scan_replaced_cuda, "rglru_scan_replaced_launch",
+                   a, b, h0)
+
+
 rglru_scan_cuda.launches = 0
+rglru_scan_replaced_cuda.launches = 0

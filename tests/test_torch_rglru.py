@@ -6,8 +6,9 @@ side runs the Pallas kernel in interpret mode (its default off a TPU) and
 its associative-scan oracle; the port's ``kernels.rglru.ops.rglru_scan``
 takes its sequential plain version on a CPU tensor. Scans are held at the
 reference's own 1e-4 (``tests/test_kernels.py:44-53``), layers at 1e-5 in
-float32. The CUDA kernel itself is checked on the card by
-``chip_smoke.py``.
+float32. The CUDA kernels themselves (the ring kernel and the replaced
+one-thread-a-chain kernel) are checked on the card by ``chip_smoke.py``;
+here both wrappers refuse CPU tensors without counting a launch.
 """
 
 import jax
@@ -23,7 +24,7 @@ from repro.models import rglru as jr
 from repro.models.layers import init_params as jax_init_params
 from repro_torch.configs import get_config
 from repro_torch.kernels.rglru import (
-    rglru_scan, rglru_scan_cuda, rglru_scan_ref,
+    rglru_scan, rglru_scan_cuda, rglru_scan_ref, rglru_scan_replaced_cuda,
 )
 from repro_torch.models import rglru as pr
 
@@ -106,6 +107,27 @@ def test_cpu_tensors_take_the_plain_version_not_the_kernel():
     with pytest.raises(ValueError, match="CUDA tensors"):
         rglru_scan_cuda(a, x, h0)
     assert rglru_scan_cuda.launches == before
+
+
+def test_replaced_kernel_takes_cuda_tensors_only():
+    """The replaced design's wrapper, like ``rglru_scan_cuda``, raises on
+    CPU tensors and counts no launch."""
+    a, x, h0 = (_t(v) for v in _scan_inputs(4, 1, 12, 8))
+    before = (rglru_scan_cuda.launches, rglru_scan_replaced_cuda.launches)
+    with pytest.raises(ValueError, match="rglru_scan_replaced_cuda takes "
+                                         "CUDA tensors"):
+        rglru_scan_replaced_cuda(a, x, h0)
+    assert (rglru_scan_cuda.launches,
+            rglru_scan_replaced_cuda.launches) == before
+
+
+def test_cpu_scan_leaves_both_launch_counters_alone():
+    a, x, h0 = (_t(v) for v in _scan_inputs(5, 2, 40, 24))
+    before = (rglru_scan_cuda.launches, rglru_scan_replaced_cuda.launches)
+    rglru_scan(a, x, h0)
+    rglru_scan(a, x)
+    assert (rglru_scan_cuda.launches,
+            rglru_scan_replaced_cuda.launches) == before
 
 
 # --------------------------------------------------------------------------- the block
