@@ -11,7 +11,7 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
    ``nvcc`` for each source, all started together, and the swarm, K4, K5
    and K6 sources once more beside them under ``-Xptxas -v``: no K1, K2,
-   K4, K5 or K6 kernel may spill (K2's registers are logged with the grid
+   K4, K4b, K5 or K6 kernel may spill (K2's registers are logged with the grid
    it chose, K6's with their shared memory);
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
    versions, index-exact, in both forms: the dense form (``(k, P)``
@@ -42,7 +42,16 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    plain version's, the bound (achieved TFLOP/s and share of the bound)
    and ``scaled_dot_product_attention``'s (softcap 0 at gemma2's shape,
    the window as a mask at recurrentgemma's), and, at gemma2's, the
-   float32 SIMT kernel's: the arithmetic of the bf16 design it replaced;
+   float32 SIMT kernel's: the arithmetic of the bf16 design it replaced.
+   Then K4b (its backward) against ``attention_bwd_ref`` at gemma2's
+   training shape (B 4, Hq 8, Hkv 4, S 2048, d 256, causal, softcap 50)
+   and recurrentgemma's (B 2, Hq 10, Hkv 1, S 4608, window 2048), in
+   float32 and bfloat16, per gradient in relative L2, two calls
+   bit-identical; in float32 with q scaled by 8 the controls (no softcap
+   derivative, delta zero) must fall outside; timed at gemma2's shape
+   beside the plain version, its bound (10 d a live pair at the float32
+   SIMT rate) and the backward of ``scaled_dot_product_attention``
+   (softcap 0);
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
    state (also through the public ``ops.ssd_mixer``) and a ragged
@@ -59,14 +68,13 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    widened (the design that the tensor-core route replaced) and the plain
    version's;
 7. K6 (RG-LRU scan) on the card against its plain version, bit for bit,
-   the ring kernel, the replaced one-thread-a-chain kernel and
-   ``ops.rglru_scan`` alike: the reference's four cases, a ragged
-   sequence and width, and the recurrentgemma serving shape (B 4, S 4608,
-   W 2560) with long-memory decays and a non-zero initial state; controls
-   restarting every 256 steps (the reference's time block) and every 32
-   (the ring's tile) must differ; the two kernels timed there in turns,
-   one launch at a time and 10 back to back, beside the plain version, the
-   bound and a ``torch.add`` of the same bytes;
+   the kernel and ``ops.rglru_scan`` alike: the reference's four cases, a
+   ragged sequence and width, and the recurrentgemma serving shape (B 4,
+   S 4608, W 2560) with long-memory decays and a non-zero initial state;
+   controls restarting every 256 steps (the reference's time block) and
+   every 32 (the ring's tile) must differ; timed there one launch at a
+   time and 10 back to back, beside the plain version, the bound and a
+   ``torch.add`` of the same bytes;
 8. the fleet path: ``fleet_scaling.json`` as a 1,000,000-peer flash crowd
    at ``dt = 16`` through ``ScenarioSpec.build("fleet").run()`` exactly as
    committed apart from ``n`` and ``dt`` (a file naming no backend runs the
@@ -114,8 +122,8 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     and 8 local-attention layers, 4,608-token prompts past the 2,048
     window), at full width from seed 14 with the decay parameters redrawn
     from the published init ranges, each through ``build_model`` and
-    ``ServeEngine.serve_queue`` as in phase 11: launches (K5 96; K6 36,
-    the replaced K6 0, and K4 16), the same tokens twice, the replayed decode; mamba2's bfloat16
+    ``ServeEngine.serve_queue`` as in phase 11: launches (K5 96; K6 36
+    and K4 16), the same tokens twice, the replayed decode; mamba2's bfloat16
     prefill as served, its logits and its first ssd block through K5
     against the plain version, each within a band from chip readings that
     the no-carry and unsplit-operand controls must fall outside; on the
@@ -125,12 +133,49 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     against the forward pass, each within a band that its controls (state
     dropped between chunks or blocks; state zeroed or conv tail dropped at
     the hand-off) must fall outside;
-13. K4's and K5's route checks: every bfloat16 launch of the whole run
-    must have taken the tensor-core route and every float32 launch the
-    SIMT one, as the launch that ran reports its route (each wrapper
-    counts launches by dtype and route), and each serving path's launches
-    by route must add up to its count;
-14. one JSON line of per-kernel numbers, then the last line
+13. the training path: full-width ``gemma2_2b`` (seed 19, bfloat16)
+    trained by ``Trainer.run`` under ``run_with_restarts`` for 4 steps of
+    4 x 2,048 tokens from a ``HostBatcher`` over a ``ShardedCorpus``, 2
+    microbatches, bfloat16 moments, remat per group, one checkpoint at the
+    last step in a directory under ``build/`` that is deleted after. K4's
+    and K4b's launches, read from this run alone, must be 2 x 2 x 26 = 104
+    and 2 x 26 = 52 a step (two forwards a layer and microbatch under
+    remat); every loss finite; seconds a step, tokens/s, K4b's share of a
+    step (CUDA events around its calls) and the peak memory logged. The
+    checkpoint, restored into a fresh ``TrainState``, must equal the
+    trained state leaf for leaf (save and load seconds and bytes logged);
+    its parameters, loaded into a fresh serving model, must serve the
+    in-memory parameters' greedy tokens; 3 more steps on one fixed batch
+    must lower its loss;
+14. float32 gradient checks at full width and reduced depth (gemma2_2b 4
+    layers, mamba2_1_3b 2, recurrentgemma_2b 3, the decays redrawn as in
+    phase 12): one step's gradients through the kernels against the same
+    step through their plain versions, by relative L2 per leaf, within a
+    band from chip readings that the controls (K4b without the softcap
+    derivative, K4b with delta zero, K4b on bf16-rounded operands, K6's
+    backward without the carried adjoint) must fall outside; gemma2's
+    query projections scaled by 1/8 so that its scores sit in the
+    softcap's bend, with a witness of the seeded and the scaled scores
+    (their size against the cap, and how much of ``P (1 - tanh^2)``
+    float32 rounding leaves); and K6's gradient at its serving shape
+    with an initial state, bit-exact with the plain scan run backwards,
+    against a control that drops dh0;
+15. crash and restart: gemma2_2b at full width and 4 layers, 6 steps with
+    a checkpoint every 2 and a crash at step 3 under ``run_with_restarts``,
+    must end bit-identical to an uninterrupted run; its last checkpoint
+    through ``checkpoint_metainfo`` and ``restore_from_bundle`` must come
+    back byte for byte;
+16. ``python -m repro_torch.launch.train`` (10 steps) and ``python -m
+    repro_torch.launch.serve --ckpt-dir`` on its checkpoint, on the card
+    at their reduced config, each printing its ``done step=`` or
+    ``restored from`` line;
+17. K4's and K5's route checks: every bfloat16 launch of K4 and K5 in
+    the whole run must have taken the tensor-core route and every float32
+    launch the SIMT one, as the launch that ran reports its route (each
+    wrapper counts launches by dtype and route), and each path's launches
+    by route must add up to its count (K4b has one route, SIMT in both
+    dtypes);
+18. one JSON line of per-kernel numbers, then the last line
     ``{"ok": true, "device": {...}}``.
 
 The parameter count of every serving path is checked against the
@@ -150,10 +195,12 @@ import dataclasses
 import functools
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -221,8 +268,8 @@ LOGITS_BAND_BF16 = 8.5e-3
 DECODE_BAND_F32 = 4e-5
 # K6: the reference's four cases (tests/test_kernels.py:44-53, b, s, w), a
 # sequence and width that are no multiple of the ring's tile (32 steps) and
-# CTA (32 channels) nor of the replaced kernel's unroll (16) and block (64),
-# and the recurrentgemma serving shape with long-memory decays
+# CTA (32 channels), and the recurrentgemma serving shape with long-memory
+# decays
 K6_CASES = [(2, 64, 32), (1, 300, 100), (3, 512, 256), (1, 16, 8)]
 K6_RAGGED = (2, 1237, 333)
 K6_SERVING = (4, 4608, 2560)
@@ -285,6 +332,57 @@ STATE_SERVING = {
         decode_faults=("window dropped",),
         layer_bands={"rec": (3e-4, 2.5e-4), "local_attn": (3e-6, 2e-3)}),
 }
+# the training path: full-width gemma2_2b from seed 19, 4 steps of 4 x 2,048
+# tokens (a HostBatcher over a ShardedCorpus of CorpusSpec's byte-level
+# vocabulary, 259 ids of the model's 256,000, so that 4 steps can show
+# the loss fall) in 2 microbatches, bfloat16 moments (a reference option,
+# tests/test_train.py:91), one checkpoint at the last step; from it, 4
+# requests of 256 tokens, 8 greedy new tokens
+TRAIN_ARCH = "gemma2_2b"
+TRAIN_SEED = 19
+TRAIN_STEPS = 4
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_CONFIG = dict(learning_rate=1e-4, warmup_steps=1, total_steps=8,
+                    microbatches=2, opt_state_dtype="bfloat16",
+                    seed=TRAIN_SEED)
+TRAIN_SERVE = (4, 256, 8)
+# crash and restart: gemma2_2b at full width and 2 groups, 6 steps of 4 x
+# 512 tokens, a checkpoint every 2 steps, the crash at step 3
+CRASH = dict(layers=4, batch=4, seq=512, steps=6, every=2, at=3)
+# K4b against its plain version: gemma2's training shape (b, hq, hkv, s, d;
+# causal, softcap 50) and recurrentgemma's (window 2048), relative L2 per
+# gradient: float32 about 8x the largest H100 reading (1.2e-6, q scaled
+# by 8; the controls read 0.25 and more there), bfloat16 about 7x its
+# (3.0e-5, the two sides' bf16 roundings of float32 values a few ulps
+# apart); both dtypes run the SIMT kernels
+K4B_CASES = [((4, 8, 4, 2048, 256), 0, 50.0), ((2, 10, 1, 4608, 256), 2048,
+                                                0.0)]
+K4B_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-4}
+# float32 gradient checks at full width and reduced depth: the kernels
+# against their plain versions, one step, relative L2 per leaf, and the
+# controls that must fall outside each arch's band. gemma2's query
+# projections are scaled by ``wq_scale`` so that its scores sit in the
+# softcap's bend, not far past the cap as at the seeded init (wq's std
+# 1/sqrt(8) by the fan-in rule; ``softcap_witness`` logs both). Bands
+# about 4-5x the H100 reading (PERF.md): gemma2 1.17e-4 on wq, whose
+# gradient moves 1.27e-5 when the plain version's operands move one ulp
+# (the bf16-operand control 0.128); mamba2 6.0e-6 (the no-carry control
+# 2.4e-4: the band near their geometric mean), recurrentgemma 5.6e-6
+# (controls 0.99, 27)
+GRAD_CHECKS = {
+    "gemma2_2b": dict(layers=4, batch=1, seq=1024, wq_scale=0.125, controls=(
+        "K4b without the softcap derivative", "K4b with delta zero",
+        "K4b on bf16-rounded operands"),
+        witnesses=("K4b's plain version on operands one ulp apart",)),
+    "mamba2_1_3b": dict(layers=2, batch=1, seq=1000, controls=(
+        "K5 without the carried state",)),
+    "recurrentgemma_2b": dict(layers=3, batch=1, seq=2560, controls=(
+        "K6's backward without the carried adjoint", "K4b with delta zero")),
+}
+GRAD_REL_L2 = {"gemma2_2b": 5e-4, "mamba2_1_3b": 3e-5,
+               "recurrentgemma_2b": 3e-5}
+GRAD_K6 = (4, 4608, 2560)
 # the checkpoint bundle: 2**33 bytes, a bf16 checkpoint of ~4.3B parameters
 BUNDLE_BYTES = 1 << 33
 BUNDLE_SEED = 12
@@ -1128,8 +1226,8 @@ def check_routes(kernel, counts, paths):
     """Fail unless every launch of ``kernel`` (K4 or K5) in the run
     (``counts``, the wrapper's ``route_launches``) took the route of its
     dtype (``DTYPE_ROUTE``), as the launch that ran reported it, and each
-    serving path's launches by route (``paths``: arch -> ({"dtype/route":
-    n}, launches)) add up to its launch count; returns the run's as
+    path's launches by route (``paths``: path -> ({"dtype/route": n},
+    launches)) add up to its launch count; returns the run's as
     {"dtype/route": launches}."""
     routes = by_route(counts)
     wrong = {key: n for key, n in routes.items()
@@ -1141,38 +1239,52 @@ def check_routes(kernel, counts, paths):
         if sum(path_routes.values()) != launches:
             fail(f"{kernel} on the {arch} serving path: {path_routes} by "
                  f"route, {launches} launches")
-    log(f"{kernel} launches by route: the whole run {routes}; serving paths "
+    log(f"{kernel} launches by route: the whole run {routes}; paths "
         + json.dumps({arch: r for arch, (r, _) in paths.items()}))
     return routes
 
 
-def check_k4_ptxas(report: str, head_dims) -> dict:
-    """Registers and spilled bytes of each K4 kernel instance from
-    ``-Xptxas -v``'s ``report``, as {"route d": [registers, spill bytes]};
-    fails if any instance spills (the tensor-core kernel's O accumulator
-    alone is 128 registers a thread at d 256)."""
+def check_k4_ptxas(report: str, head_dims) -> tuple[dict, dict]:
+    """Registers and spilled bytes of each K4 and K4b kernel instance from
+    ``-Xptxas -v``'s ``report`` of the attention source, as ({"route d":
+    [registers, spill bytes]}, {"kernel dtype d": [...]}) for the forward
+    and the backward (the forward in two instances, the one training runs
+    writing lse); fails if any instance spills (the tensor-core kernel's
+    O accumulator alone is 128 registers a thread at d 256) or one is
+    missing."""
     routes = {"tc": "tensor_core", "simt": "simt"}
-    found, name = {}, None
+    dtypes = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    fwd, bwd, row = {}, {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(tc|simt)"
-                      r"15attn_fwd_kernelILi(\d+)E", line)
-        if m:
-            name = f"{routes[m.group(1)]} d{m.group(2)}"
-            found[name] = [0, 0]
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            found[name][0] = int(m.group(1))
-        elif name and (m := re.search(
+        if "Compiling entry function" in line:
+            row = None
+            if m := re.search(r"\d(tc|simt)15attn_fwd_kernelILi(\d+)ELb([01])E",
+                              line):
+                lse = " lse" if m.group(3) == "1" else ""
+                row = fwd[f"{routes[m.group(1)]} d{m.group(2)}{lse}"] = [0, 0]
+            elif m := re.search(r"3bwd\d+(delta|dkdv|dq)_kernelI"
+                                r"(f|13__nv_bfloat16)Li(\d+)E", line):
+                row = bwd[f"{m.group(1)} {dtypes[m.group(2)]} "
+                          f"d{m.group(3)}"] = [0, 0]
+        elif row is not None and (m := re.search(r"Used (\d+) registers",
+                                                 line)):
+            row[0] = int(m.group(1))
+        elif row is not None and (m := re.search(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            found[name][1] = int(m.group(1)) + int(m.group(2))
-    if len(found) != 2 * len(head_dims):
-        fail(f"K4 -Xptxas -v: {sorted(found)} kernel instances, one a route "
-             f"and head dim {head_dims} expected:\n{report}")
-    spills = {n: v[1] for n, v in found.items() if v[1]}
+            row[1] = int(m.group(1)) + int(m.group(2))
+    if len(fwd) != 4 * len(head_dims) or len(bwd) != 6 * len(head_dims):
+        fail(f"K4 -Xptxas -v: {sorted(fwd)} forward and {sorted(bwd)} "
+             f"backward kernel instances; two a route and head dim "
+             f"{head_dims} (with and without lse), and three a dtype and "
+             f"head dim, expected:\n{report}")
+    spills = {n: v[1] for n, v in {**fwd, **bwd}.items() if v[1]}
     if spills:
         fail(f"K4 -Xptxas -v: spilled bytes {spills}")
     log("K4 -Xptxas -v, registers a thread, no spill: "
-        + ", ".join(f"{n} {v[0]}" for n, v in found.items()))
-    return found
+        + ", ".join(f"{n} {v[0]}" for n, v in fwd.items()))
+    log("K4b -Xptxas -v, registers a thread, no spill: "
+        + ", ".join(f"{n} {v[0]}" for n, v in bwd.items()))
+    return fwd, bwd
 
 
 # each kernel of a source as -Xptxas -v names it (a part of its mangled
@@ -1183,8 +1295,7 @@ SWARM_KERNELS = {"rarest_dense_kernelILb1E": "K1 dense, 32 staged rows a CTA",
                  "waterfill_kernel": "K2 persistent"}
 K5_KERNELS = {"tc12chunk_kernel": "tensor_core",
               "simt16ssd_chunk_kernel": "simt"}
-K6_KERNELS = {"17rglru_scan_kernel": "ring",
-              "26rglru_scan_replaced_kernel": "replaced"}
+K6_KERNELS = {"17rglru_scan_kernel": "ring"}
 
 
 def check_ptxas(what: str, report: str, kernels: dict) -> dict:
@@ -1428,12 +1539,12 @@ def rglru_restarting(k6, a, b, h0, every=K6_RESTART):
 
 
 def check_k6(k6, dev):
-    """K6 vs its plain version on the card, bit for bit, the ring kernel
-    and the replaced one alike: the reference's four cases, a ragged
-    sequence and width, and the serving shape with long-memory decays and a
+    """K6 vs its plain version on the card, bit for bit, the kernel and
+    ``ops.rglru_scan`` alike: the reference's four cases, a ragged sequence
+    and width, and the serving shape with long-memory decays and a
     non-zero h0; controls restarting every ``K6_RESTART`` steps and every
-    tile of the ring must differ. Times both kernels at the serving shape
-    in turns; returns the ring kernel's record."""
+    tile of the ring must differ. Times the kernel at the serving shape;
+    returns its record."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
@@ -1455,8 +1566,6 @@ def check_k6(k6, dev):
         want = k6.rglru_scan_ref(a, x, h0)
         what = f"(B, S, W) = {(b, s, w)}, a in U({lo}, {hi})"
         for name, got in (("ring kernel", k6.rglru_scan_cuda(a, x, h0)),
-                          ("replaced kernel",
-                           k6.rglru_scan_replaced_cuda(a, x, h0)),
                           ("ops.rglru_scan", k6.rglru_scan(a, x, h0))):
             torch.cuda.synchronize()
             worst = max(worst, float((got - want).abs().max()))
@@ -1477,29 +1586,18 @@ def check_k6(k6, dev):
                          f"{float((control - want).abs().max()):.4g}, "
                          f"relative L2 {rel_l2(control, want):.4g}")
             del control
-        log(f"K6 {what}: the ring kernel, the replaced kernel and "
-            f"ops.rglru_scan bit-exact"
+        log(f"K6 {what}: the ring kernel and ops.rglru_scan bit-exact"
             + "".join(f"; the control {n}" for n in notes))
         del a, x, h0, want
 
     b, s, w = K6_SERVING
     a, x, h0 = inputs(b, s, w, *K6_LONG_MEMORY)
-    # in turns: ring, replaced, replaced, ring; each one launch at a time
-    # (``ms``, as K1-K5 are timed) and 10 back to back (``steady_ms``: the
-    # device time without the wrapper's host time before each launch)
-    single = {k6.rglru_scan_cuda: [], k6.rglru_scan_replaced_cuda: []}
-    steady = {k6.rglru_scan_cuda: [], k6.rglru_scan_replaced_cuda: []}
-    for fn in (k6.rglru_scan_cuda, k6.rglru_scan_replaced_cuda,
-               k6.rglru_scan_replaced_cuda, k6.rglru_scan_cuda):
-        call = functools.partial(fn, a, x, h0)
-        single[fn].append(median_ms(call, reps=20))
-        steady[fn].append(steady_ms(call))
-    ms, replaced_ms = (statistics.median(single[fn])
-                       for fn in (k6.rglru_scan_cuda,
-                                  k6.rglru_scan_replaced_cuda))
-    ring_steady_ms, replaced_steady_ms = (
-        statistics.median(steady[fn])
-        for fn in (k6.rglru_scan_cuda, k6.rglru_scan_replaced_cuda))
+    # one launch at a time (``ms``, as K1-K5 are timed) and 10 back to back
+    # (``steady_ms``: the device time without the wrapper's host time
+    # before each launch)
+    call = functools.partial(k6.rglru_scan_cuda, a, x, h0)
+    ms = median_ms(call, reps=20)
+    ring_steady_ms = steady_ms(call)
     plain_ms = median_ms(lambda: k6.rglru_scan_ref(a, x, h0), reps=3)
     # the same bytes as one streaming pass (a and b read, one tensor
     # written): what the card reaches without a recurrence; not K6's function
@@ -1518,14 +1616,9 @@ def check_k6(k6, dev):
         f"one warp a CTA, tiles of {ring['steps']} steps, {ring['stages']} "
         f"stages, {ring['ring_bytes']} bytes of ring), bound "
         f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB), plain "
-        f"{plain_ms:.3f} ms; one launch at a time: the ring kernel "
-        f"{rates(ms)} (in turns "
-        f"{[round(t, 4) for t in single[k6.rglru_scan_cuda]]}), the "
-        f"replaced kernel {rates(replaced_ms)} "
-        f"({[round(t, 4) for t in single[k6.rglru_scan_replaced_cuda]]}); "
-        f"10 launches back to back: the ring kernel {rates(ring_steady_ms)}"
-        f", the replaced kernel {rates(replaced_steady_ms)}; torch.add of a "
-        f"and b (the same bytes streamed, back to back) {add_ms:.4f} ms")
+        f"{plain_ms:.3f} ms; one launch at a time {rates(ms)}; 10 launches "
+        f"back to back {rates(ring_steady_ms)}; torch.add of a and b (the "
+        f"same bytes streamed, back to back) {add_ms:.4f} ms")
     return {
         "name": "rglru_scan",
         "route": "cuda",
@@ -1538,13 +1631,9 @@ def check_k6(k6, dev):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-        "replaced_ms": replaced_ms,
         "steady_ms": ring_steady_ms,
-        "replaced_steady_ms": replaced_steady_ms,
         "bound_share": bound_ms / ms,
-        "replaced_bound_share": bound_ms / replaced_ms,
         "gbps": nbytes / ms / 1e6,
-        "replaced_gbps": nbytes / replaced_ms / 1e6,
         "same_bytes_add_ms": add_ms,
         "shape": [b, s, w],
         "dtype": "float32",
@@ -2520,6 +2609,807 @@ def run_state_serving_path(arch, kernels, counters, device=None):
     return outcome
 
 
+# ------------------------------------------------------------------ K4b
+
+
+def k4b_bound(q, k, *, window):
+    """K4b's bound at a causal q (B, Hq, S, d) and k/v (B, Hkv, S, d) of
+    q's dtype: q, k, v, the output, its gradient and lse read once and dq,
+    dk, dv written once; 10·d operations per live (q, k) pair and query
+    head (q·k recomputed, dV, dP, dQ, dK) at the card's peak for the
+    operands' type (bf16 on the tensor cores, float32 outside them).
+    Returns (ms, bound_by, operations, the same bound at the float32 SIMT
+    rate that today's kernel runs at)."""
+    import torch
+
+    b, hq, s, d = q.shape
+    size = q.element_size()
+    nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * s
+    flops = 10 * b * hq * d * live_pairs(s, s, True, window)
+    peak = (BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16
+            else F32_OPS_PER_S)
+    return (*bound(nbytes, flops, peak), flops, bound(nbytes, flops)[0])
+
+
+def attention_bwd_faulty(q, k, v, out, dout, lse, *, fault, **kw):
+    """K4b's plain version (``attention_bwd_ref``) with one fault put in,
+    the control for K4b's bands: ``"no softcap derivative"`` takes the
+    softcap's derivative as 1, ``"delta zero"`` sets ``delta = rowsum(dO *
+    O)`` to 0 (dS = P dP), ``"bf16 operands"`` rounds q, k, v, the output
+    and its gradient to bfloat16 first (the operands of a bf16 tensor-core
+    route); ``"one ulp"``, a witness rather than a fault, moves a seeded
+    half of their elements by one float32 ulp (float32 rounding's own
+    spread)."""
+    import torch
+
+    import math
+
+    from repro_torch.kernels.attention import ref
+
+    if fault == "delta zero":
+        out = torch.zeros_like(out)
+    elif fault == "bf16 operands":
+        q, k, v, out, dout = (t.to(torch.bfloat16).to(t.dtype)
+                              for t in (q, k, v, out, dout))
+    elif fault == "one ulp":
+        gen = torch.Generator(device=q.device).manual_seed(TRAIN_SEED)
+        q, k, v, out, dout = (
+            torch.where(torch.rand(t.shape, generator=gen, device=t.device)
+                        < 0.5, torch.nextafter(t, torch.full_like(t, math.inf)),
+                        t) for t in (q, k, v, out, dout))
+    else:
+        assert fault == "no softcap derivative", fault
+        with swapped(ref, "softcap_grad", lambda u, cap: torch.ones_like(u)):
+            return ref.attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+    return ref.attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+
+
+def check_k4b(k4, dev):
+    """K4b against its plain version on the card at gemma2's training
+    shape (causal, softcap 50) and recurrentgemma's (one key/value head,
+    window 2048), in float32 and bfloat16, within ``K4B_REL_L2`` per
+    gradient, and bit-identical from one call to the next; in float32,
+    with q scaled so that the scores reach the softcap's bend, the
+    controls of ``attention_bwd_faulty`` must fall outside. Times it at
+    gemma2's shape beside the plain version, the bound and
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention``
+    (softcap 0), backward only; returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    worst, worst_abs = {}, 0.0
+    for (b, hq, hkv, s, d), window, cap in K4B_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            for q_scale in ((1.0, 8.0) if dtype == torch.float32 and cap
+                            else (1.0,)):
+                q, k, v, do = (
+                    torch.randn(shape, generator=gen, device=dev)
+                    for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                  (b, hkv, s, d), (b, hq, s, d)))
+                q = (q * q_scale).to(dtype)
+                k, v, do = k.to(dtype), v.to(dtype), do.to(dtype)
+                kw = dict(causal=True, window=window, softcap=cap)
+                out, lse = k4.flash_attention_cuda(q, k, v, return_lse=True,
+                                                   **kw)
+                got = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+                again = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                    **kw)
+                want = k4.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+                torch.cuda.synchronize()
+                what = (f"K4b {dt} q {(b, hq, s, d)} k/v {(b, hkv, s, d)} "
+                        f"window {window} softcap {cap} q x {q_scale}")
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"{what}: two calls differ")
+                rels = [rel_l2(x, y) for x, y in zip(got, want)]
+                band = K4B_REL_L2[dt]
+                worst[dt] = max(worst.get(dt, 0.0), *rels)
+                worst_abs = max(worst_abs, *(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(got, want)))
+                controls = {}
+                if dtype == torch.float32:
+                    for fault in ("no softcap derivative", "delta zero"):
+                        if fault == "no softcap derivative" and not cap:
+                            continue
+                        bad = attention_bwd_faulty(q, k, v, out, do, lse,
+                                                   fault=fault, **kw)
+                        controls[fault] = max(rel_l2(x, y)
+                                              for x, y in zip(bad, want))
+                        del bad
+                log(f"{what}: relative L2 dq {rels[0]:.3g}, dk {rels[1]:.3g},"
+                    f" dv {rels[2]:.3g} (band {band:.3g}); bit-identical "
+                    f"twice; controls " + json.dumps(
+                        {n: float(f"{c:.4g}") for n, c in controls.items()}))
+                if max(rels) > band:
+                    fail(f"{what}: relative L2 {rels} above {band}")
+                if q_scale > 1.0:
+                    for name, c in controls.items():
+                        if c <= band:
+                            fail(f"{what}: the control '{name}' ({c}) is "
+                                 f"inside the band {band}")
+                del q, k, v, do, out, lse, got, again, want
+                torch.cuda.empty_cache()
+
+    (b, hq, hkv, s, d), window, cap = K4B_CASES[0]
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                                 (b, hq, s, d)))
+    kw = dict(causal=True, window=window, softcap=cap)
+    out, lse = k4.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    ms = median_ms(lambda: k4.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                       **kw), reps=10)
+    plain_ms = median_ms(lambda: k4.attention_bwd_ref(q, k, v, out, do, lse,
+                                                      **kw), reps=3)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(hq // hkv, dim=1),
+        v.repeat_interleave(hq // hkv, dim=1)))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    library_ms = median_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), do, retain_graph=True), reps=10)
+    bound_ms, bound_by, flops, simt_bound_ms = k4b_bound(q, k, window=window)
+    log(f"K4b at gemma2's training shape {(b, hq, hkv, s, d)} bf16 softcap "
+        f"{cap}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention backward (softcap 0) "
+        f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP at the bf16 tensor-core rate, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
+        f"{100 * bound_ms / ms:.2f} % of the bound; at the float32 SIMT "
+        f"rate of today's route {simt_bound_ms:.3f} ms, "
+        f"{100 * simt_bound_ms / ms:.1f} %)")
+    del q, k, v, do, out, lse, qs, ks, vs, lib_out
+    torch.cuda.empty_cache()
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": ATTENTION_SOURCE,
+        "replaces": "src/repro/models/attention.py:181 (_flash_core_bwd, "
+                    "not a Pallas kernel)",
+        "max_abs_err": worst_abs,
+        "max_rel_l2": worst,
+        "matched": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library": "torch.autograd.grad through "
+                   "scaled_dot_product_attention(is_causal=True), softcap 0, "
+                   "backward only",
+        "bound_share": bound_ms / ms,
+        "simt_bound_ms": simt_bound_ms,
+        "tflops": flops / ms / 1e9,
+        "gflop": flops / 1e9,
+        "shape": [b, hq, hkv, s, d],
+        "dtype": "bfloat16",
+        "softcap": cap,
+    }
+
+
+# ------------------------------------------------------------------ training
+
+
+@contextlib.contextmanager
+def plain_training(k4, k5, k6):
+    """The kernels' plain versions forward and backward (``plain_kernels``
+    with K4b's plain version too)."""
+    from repro_torch.kernels.attention import ops as attn_ops
+
+    with plain_kernels(k4, k5, k6), swapped(
+            attn_ops, "flash_attention_bwd_cuda", k4.attention_bwd_ref):
+        yield
+
+
+def gradients(bundle, params, batch):
+    """The loss and every parameter's gradient, by name."""
+    import torch
+
+    loss, _ = bundle.loss_fn(params, batch)
+    names, leaves = zip(*params.named_parameters())
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def worst_leaf(got: dict, want: dict) -> tuple[float, str]:
+    """The largest relative L2 of ``got`` against ``want`` over the leaves,
+    and the leaf's name."""
+    return max((rel_l2(got[n], want[n]), n) for n in want)
+
+
+def rglru_bwd_without_carry(a, h, h0, g):
+    """The control for K6's gradient: the backward scan with the carried
+    adjoint dropped (``dh_t = g_t``, no ``a_{t+1} dh_{t+1}``)."""
+    import torch
+
+    first = torch.zeros_like(h[:, :1]) if h0 is None else h0[:, None]
+    h_prev = torch.cat([first, h[:, :-1]], dim=1)
+    g = g.to(torch.float32)
+    return g * h_prev, g, None if h0 is None else a[:, 0] * g[:, 0]
+
+
+def rglru_bwd_without_dh0(a, h, h0, g, *, bwd):
+    """The control for K6's gradient: the backward ``bwd`` with ``dh0``
+    dropped."""
+    da, db, dh0 = bwd(a, h, h0, g)
+    return da, db, None if dh0 is None else dh0 * 0
+
+
+def softcap_witness(q, k, kw, scales):
+    """At one attention layer's q (B, Hq, S, d) and k (B, Hkv, S, d) and
+    its masks and softcap (``kw``), with the scores ``u = q·k / sqrt(d)`` scaled by each of ``scales``
+    (name -> factor): the median ``|u| / cap`` over the live pairs, and the
+    probabilities times the softcap's derivative, ``P (1 - tanh^2(u /
+    cap))``, which every dS carries, computed in float32 against float64,
+    relative L2: how much of that factor float32 rounding alone leaves."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.attention.ref import (
+        _mask, softcap_fn, softcap_grad,
+    )
+
+    cap = kw["softcap"]
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    u = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.double().reshape(b, -1, g, s, d), k.double())
+    u = u / math.sqrt(d)
+    live = _mask(s, s, causal=kw["causal"], window=kw["window"], q_offset=0,
+                 skv_valid=s, device=q.device)
+    out = {}
+    for name, factor in scales.items():
+        x = u * factor
+        p = torch.softmax(softcap_fn(x, cap).masked_fill(~live, -math.inf),
+                          dim=-1)
+        want = p * softcap_grad(x, cap)
+        got = p.float() * softcap_grad(x.float(), cap)
+        out[name] = {
+            "scale": factor,
+            "median_abs_u_over_cap": float(x[..., live].abs().median() / cap),
+            "p_softcap_grad_f32_vs_f64_rel_l2": float(
+                (got.double() - want).norm() / want.norm()),
+        }
+        del x, p, want, got
+    return out
+
+
+def gradient_checks(kernels, counters, device=None, archs=None,
+                    configure=None, k6_shape=GRAD_K6):
+    """One float32 step's gradients at full width and reduced depth
+    (``GRAD_CHECKS``) through the kernels (K4 with K4b, K5's Function, K6
+    forward and reversed) against the same step through their plain
+    versions, by relative L2 per leaf within ``GRAD_REL_L2``; each arch's
+    controls must fall outside. Then K6's Function alone at the serving
+    shape (``k6_shape``) with an initial state, whose gradients must equal
+    the plain version's bit for bit and the dh0-dropped control's must
+    not. ``configure``, if given, maps each config before it is built (a
+    rehearsal on the host shrinks the widths)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.models import build_model
+
+    k4, k5, k6 = kernels
+    controls = {
+        "K4b without the softcap derivative": lambda: swapped(
+            attn_ops, "flash_attention_bwd_cuda", functools.partial(
+                attention_bwd_faulty, fault="no softcap derivative")),
+        "K4b with delta zero": lambda: swapped(
+            attn_ops, "flash_attention_bwd_cuda", functools.partial(
+                attention_bwd_faulty, fault="delta zero")),
+        "K4b on bf16-rounded operands": lambda: swapped(
+            attn_ops, "flash_attention_bwd_cuda", functools.partial(
+                attention_bwd_faulty, fault="bf16 operands")),
+        "K4b's plain version on operands one ulp apart": lambda: swapped(
+            attn_ops, "flash_attention_bwd_cuda", functools.partial(
+                attention_bwd_faulty, fault="one ulp")),
+        "K6's backward without the carried adjoint": lambda: swapped(
+            rglru_ops, "rglru_scan_bwd", rglru_bwd_without_carry),
+        "K5 without the carried state": lambda: plain_kernels(
+            k4, k5, k6, carry=False),
+    }
+    out = {}
+    for arch, spec in (archs or GRAD_CHECKS).items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=spec["layers"],
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        cfg = configure(cfg) if configure else cfg
+        bundle = build_model(cfg, device)
+        gen = torch.Generator(device=bundle.device).manual_seed(TRAIN_SEED)
+        params = bundle.init(gen, trainable=True)
+        redraw_decays(params, cfg, gen)
+        wq_scale = spec.get("wq_scale", 1.0)
+        with torch.no_grad():
+            for name, p in params.named_parameters():
+                if name.endswith("attn.wq"):
+                    p.mul_(wq_scale)
+        rng = np.random.default_rng(TRAIN_SEED)
+        toks = rng.integers(0, cfg.vocab_size, (spec["batch"], spec["seq"] + 1))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+                 "targets": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
+        for w in counters.values():
+            w.launches = 0
+        first = []
+        forward = attn_ops._forward
+
+        def kept_first(q, k, v, kw, return_lse=False):
+            if not first:
+                first.append((q.detach(), k.detach(), kw))
+            return forward(q, k, v, kw, return_lse)
+
+        with swapped(attn_ops, "_forward", kept_first):
+            loss, got = gradients(bundle, params, batch)
+        launches = {n: w.launches for n, w in counters.items()}
+        witness = None
+        if first and first[0][2]["softcap"] > 0:
+            q, k, kw = first[0]
+            witness = softcap_witness(q, k, kw,
+                                      {"seeded": 1 / wq_scale, "run": 1.0})
+            log(f"softcap witness {arch}, layer 0 (live causal pairs): "
+                + json.dumps(witness))
+        del first
+        with plain_training(k4, k5, k6):
+            plain_loss, want = gradients(bundle, params, batch)
+        rel, leaf = worst_leaf(got, want)
+        band = GRAD_REL_L2[arch]
+        readings = {}
+        for name in (*spec["controls"], *spec.get("witnesses", ())):
+            with plain_training(k4, k5, k6), controls[name]():
+                _, bad = gradients(bundle, params, batch)
+            readings[name] = worst_leaf(bad, want)
+            del bad
+        seen = {n: readings.pop(n) for n in spec.get("witnesses", ())}
+        log(f"gradient check {arch} at {spec['layers']} layers, batch "
+            f"{spec['batch']} x {spec['seq']}, float32: loss {float(loss):.6f}"
+            f" (plain {float(plain_loss):.6f}), launches {launches}; worst "
+            f"leaf {leaf} relative L2 {rel:.4g} (band {band:.3g}); controls "
+            + json.dumps({n: [float(f"{r:.4g}"), lf]
+                          for n, (r, lf) in readings.items()})
+            + ("; witnesses " + json.dumps({n: [float(f"{r:.4g}"), lf]
+                                            for n, (r, lf) in seen.items()})
+               if seen else ""))
+        if not torch.isfinite(loss) or rel > band:
+            fail(f"gradient check {arch}: leaf {leaf} at relative L2 {rel} "
+                 f"above {band}")
+        for name, (r, lf) in readings.items():
+            if r <= band:
+                fail(f"gradient check {arch}: the control '{name}' ({r} at "
+                     f"{lf}) is inside the band {band}")
+        out[arch] = {"rel_l2": rel, "leaf": leaf, "band": band,
+                     "launches": launches, "controls": {
+                         n: r for n, (r, _) in readings.items()},
+                     "witnesses": {n: r for n, (r, _) in seen.items()},
+                     **({"softcap_witness": witness} if witness else {})}
+        del params, got, want, bundle
+        torch.cuda.empty_cache()
+
+    # K6's Function with an initial state: the kernel's reversed launch
+    # against the plain scan, bit for bit
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    b, s, w = k6_shape
+    a = (torch.rand((b, s, w), generator=gen, device=dev)
+         * (K6_LONG_MEMORY[1] - K6_LONG_MEMORY[0]) + K6_LONG_MEMORY[0])
+    x, g = (torch.randn((b, s, w), generator=gen, device=dev)
+            for _ in range(2))
+    h0 = torch.randn((b, w), generator=gen, device=dev)
+
+    def scan_grads():
+        leaves = [t.detach().clone().requires_grad_() for t in (a, x, h0)]
+        return torch.autograd.grad(k6.rglru_scan(*leaves), leaves, g)
+
+    before = k6.rglru_scan_cuda.launches
+    got = scan_grads()
+    k6_launches = k6.rglru_scan_cuda.launches - before
+    with swapped(rglru_ops, "rglru_scan_cuda", k6.rglru_scan_ref):
+        want = scan_grads()
+        with swapped(rglru_ops, "rglru_scan_bwd", functools.partial(
+                rglru_bwd_without_dh0, bwd=rglru_ops.rglru_scan_bwd)):
+            bad = scan_grads()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, want)):
+        fail("K6's gradient at the serving shape differs from the plain "
+             "scan's: " + ", ".join(f"{rel_l2(p, q):.3g}"
+                                    for p, q in zip(got, want)))
+    if torch.equal(bad[2], want[2]):
+        fail("K6's gradient: the dh0-dropped control equals the plain scan's")
+    log(f"K6's gradient at {k6_shape} with h0: da, db, dh0 bit-exact with the "
+        f"plain scan run backwards ({k6_launches} K6 launches: forward and "
+        f"reversed); the dh0-dropped control reads relative L2 "
+        f"{rel_l2(bad[2], want[2]):.4g} in dh0")
+    out["rglru_scan_h0"] = {"bit_exact": True, "launches": k6_launches}
+    return out
+
+
+class StepClock:
+    """Wraps a train step: each call synchronised and timed on the host,
+    K4b's device time inside it summed from CUDA events around each of its
+    calls, and the state it returns kept (``last``)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.seconds, self.k4b_ms, self.last = [], [], None
+
+    def __call__(self, state, batch):
+        import torch
+
+        from repro_torch.kernels.attention import ops as attn_ops
+
+        events = []
+        kernel = attn_ops.flash_attention_bwd_cuda
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kernel(*args, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with swapped(attn_ops, "flash_attention_bwd_cuda", timed):
+            state, metrics = self.step(state, batch)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.k4b_ms.append(sum(s.elapsed_time(e) for s, e in events))
+        self.last = state
+        return state, metrics
+
+
+def device_breakdown(fn) -> tuple[float, dict]:
+    """``fn()`` under ``torch.profiler``: its wall in seconds (synchronised;
+    the profiler's overhead in it) and the device time in ms of the CUDA
+    kernels and copies it ran, by category: K4b, K4, matrix products
+    (cuBLAS/CUTLASS kernels) and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    ms = collections.Counter()
+    for event in prof.events():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        name = event.name
+        kind = ("K4b" if "bwd::" in name else
+                "K4" if "attn_fwd_kernel" in name else
+                "matrix products" if any(k in name.lower() for k in (
+                    "gemm", "nvjet", "xmma", "cutlass", "cublas")) else
+                "other")
+        ms[kind] += event.time_range.elapsed_us() / 1e3
+    return wall, dict(ms)
+
+
+def tree_equal(a, b) -> bool:
+    """Every leaf of two training trees equal, bit for bit."""
+    import torch
+
+    from repro_torch.train.checkpoint import reference_layout
+
+    la, lb = reference_layout(a), reference_layout(b)
+    return la.keys() == lb.keys() and all(
+        torch.equal(x, y) for k in la for x, y in zip(la[k][0], lb[k][0]))
+
+
+def scratch_dir() -> Path:
+    """Where the training phases write their checkpoints: a directory of
+    the checkout that git ignores (``build/``), not the host's temp."""
+    path = ROOT / "build"
+    path.mkdir(exist_ok=True)
+    return path
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def run_training_path(counters, device=None, cfg=None, batch=None, seq=None,
+                      steps=TRAIN_STEPS, serve=TRAIN_SERVE):
+    """Full-width gemma2_2b (or ``cfg``) trained for ``steps`` steps by
+    ``Trainer.run`` under ``run_with_restarts``, from a ``HostBatcher``
+    over a ``ShardedCorpus``, 2 microbatches, bfloat16 moments, one
+    checkpoint at the last step; the kernel counters of ``counters`` set
+    to 0 before the run and read after it. Then: the checkpoint restored
+    into a fresh ``TrainState`` leaf-equal; the restored parameters,
+    served, give the in-memory parameters' greedy tokens; 3 more steps on
+    one fixed batch lower its loss. Returns the path's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import CorpusSpec, HostBatcher, ShardedCorpus
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import (
+        Trainer, TrainerConfig, init_train_state, load_checkpoint,
+        make_eval_step, make_train_step, run_with_restarts,
+    )
+
+    cfg = cfg or get_config(TRAIN_ARCH)
+    batch, seq = batch or TRAIN_BATCH, seq or TRAIN_SEQ
+    bundle = build_model(cfg, device)
+    dev = bundle.device
+    tcfg = TrainConfig(**TRAIN_CONFIG)
+    corpus = ShardedCorpus(CorpusSpec(
+        num_shards=2, tokens_per_shard=(steps + 2) * batch * (seq + 1),
+        seed=TRAIN_SEED))
+    shards = [corpus.shard_tokens(i) for i in range(2)]
+    out = {"arch": cfg.name, "steps": steps, "batch": batch, "seq": seq,
+           "microbatches": tcfg.microbatches}
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        lines = []
+        trainer = Trainer(
+            bundle, tcfg, HostBatcher(shards, batch_size=batch, seq_len=seq),
+            TrainerConfig(ckpt_dir=tmp, ckpt_every=steps, log_every=1,
+                          keep_last=1),
+            log_fn=lambda m: (lines.append(m), log(m)))
+        clock = StepClock(trainer.train_step)
+        trainer.train_step = clock
+        saves = []
+        save = trainer._save
+
+        def timed_save(state, step):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save(state, step)
+            saves.append(time.perf_counter() - t)
+
+        trainer._save = timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counters.values():
+            w.launches = 0
+        routed = {n: collections.Counter(w.route_launches)
+                  for n, w in counters.items() if hasattr(w, "route_launches")}
+        t0 = time.perf_counter()
+        final, restarts = run_with_restarts(
+            lambda: trainer.run(steps).final_step)
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in counters.items()}
+        routes = {n: by_route(collections.Counter(counters[n].route_launches)
+                              - before) for n, before in routed.items()}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(m.split("loss ")[1].split()[0]) for m in lines
+                  if m.startswith("[trainer] step")]
+        attn_layers = sum(k in ("attn", "local_attn")
+                          for k in layer_kinds(cfg))
+        want = {"flash_attention": 2 * steps * tcfg.microbatches * attn_layers,
+                "flash_attention_bwd": steps * tcfg.microbatches * attn_layers}
+        tokens = batch * seq
+        step_s = clock.seconds
+        steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+        k4b_share = statistics.median(
+            ms / 1e3 / s for ms, s in zip(clock.k4b_ms[1:] or clock.k4b_ms,
+                                          step_s[1:] or step_s))
+        log(f"training path {cfg.name}: {steps} steps of {batch} x {seq} "
+            f"tokens in {tcfg.microbatches} microbatches, wall {wall:.2f}s "
+            f"(the final checkpoint's save included); step seconds "
+            f"{[round(t, 3) for t in step_s]}, {tokens / steady:.0f} "
+            f"tokens/s after the first; K4b {[round(t, 1) for t in clock.k4b_ms]}"
+            f" ms a step, {100 * k4b_share:.1f} % of it; losses {losses}; "
+            f"launches {launches} (counted {want}), by route {routes}; peak "
+            f"device memory {peak / 2**30:.2f} GiB")
+        if (final, restarts) != (steps, 0) or len(losses) != steps or not (
+                np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"training path: final step {final}, {restarts} restarts, "
+                 f"losses {losses} (finite and falling wanted)")
+        if launches != want:
+            fail(f"training path: launches {launches}, not {want} (2 K4 "
+                 "forwards a layer a microbatch under remat, one K4b)")
+        for name, r in routes.items():
+            wrong = {k: n for k, n in r.items()
+                     if DTYPE_ROUTE.get(k.split("/")[0]) != k.split("/")[1]}
+            if wrong or sum(r.values()) != launches[name]:
+                fail(f"training path: {name} launches by route {r}")
+
+        # the checkpoint, restored into a fresh state
+        trained = clock.last
+        ckpt_dir = Path(tmp) / f"step_{steps:08d}"
+        nbytes = dir_bytes(ckpt_dir)
+        fresh = init_train_state(bundle, tcfg, torch.Generator(
+            device=dev).manual_seed(TRAIN_SEED + 1))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        load_checkpoint(tmp, {"params": fresh.params, "opt": fresh.opt})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        if not tree_equal({"params": fresh.params, "opt": fresh.opt},
+                          {"params": trained.params, "opt": trained.opt}):
+            fail("training path: the restored state differs from the trained "
+                 "one")
+        log(f"training path: the step-{steps} checkpoint, {nbytes} bytes, "
+            f"saved in {saves[-1]:.2f}s and restored into a fresh TrainState "
+            f"in {load_s:.2f}s, every leaf equal")
+        del fresh
+        torch.cuda.empty_cache()
+
+        # serving from it
+        n_req, prompt, new = serve
+        rng = np.random.default_rng(TRAIN_SEED)
+        reqs = list(rng.integers(0, cfg.vocab_size, (n_req, prompt))
+                    .astype(np.int32))
+        served = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        load_checkpoint(tmp, {"params": served})
+        config = ServeConfig(max_new_tokens=new)
+        from_ckpt = np.stack(ServeEngine(bundle, served, config)
+                             .serve_queue(reqs, slots=n_req))
+        in_memory = np.stack(ServeEngine(bundle, trained.params, config)
+                             .serve_queue(reqs, slots=n_req))
+        if not np.array_equal(from_ckpt, in_memory):
+            fail("training path: the checkpoint's parameters serve other "
+                 "tokens than the trained ones in memory")
+        log(f"training path: {n_req} requests x {prompt} tokens served from "
+            f"the restored checkpoint, {new} greedy tokens each, equal to "
+            f"the in-memory parameters'; first: {from_ckpt[0].tolist()}")
+        del served
+
+    # 3 more steps on one fixed batch lower its loss
+    fixed = HostBatcher(shards, batch_size=batch, seq_len=seq).take(1)[0]
+    fixed = {"tokens": torch.from_numpy(fixed.tokens),
+             "targets": torch.from_numpy(fixed.targets)}
+    evaluate = make_eval_step(bundle)
+    step = make_train_step(bundle, tcfg)
+    state = trained
+    before = float(evaluate(state.params, fixed)["loss"])
+    for _ in range(2):
+        state, _ = step(state, fixed)
+    # the third under torch.profiler: where a step's device time goes
+    traced_s, device_ms = device_breakdown(lambda: step(state, fixed))
+    after = float(evaluate(state.params, fixed)["loss"])
+    busy = sum(device_ms.values())
+    log(f"training path: one fixed batch's loss {before:.4f} -> {after:.4f} "
+        f"after 3 more steps; the third under torch.profiler: "
+        f"{busy:.1f} ms of device time in {1e3 * traced_s:.1f} ms of wall "
+        f"(idle {100 * (1 - busy / (1e3 * traced_s)):.1f} %), by kind "
+        + json.dumps({k: round(v, 1) for k, v in sorted(device_ms.items())}))
+    if not after < before:
+        fail(f"training path: 3 steps on a fixed batch did not lower its "
+             f"loss ({before} -> {after})")
+    k4b_ms = clock.k4b_ms
+    del state, trained, clock, trainer
+    torch.cuda.empty_cache()
+    return {**out, "wall_s": wall, "step_s": step_s,
+            "tokens_per_s": tokens / steady, "losses": losses,
+            "k4b_ms_per_step": k4b_ms, "k4b_share": k4b_share, "launches": launches, "routes": routes,
+            "peak_gib": peak / 2**30, "checkpoint_bytes": nbytes,
+            "save_s": saves[-1], "load_s": load_s,
+            "fixed_batch_loss": [before, after],
+            "traced_step": {"wall_ms": 1e3 * traced_s,
+                            "device_ms": device_ms}}
+
+
+def crash_restart_check(device=None, cfg=None, spec=None):
+    """gemma2_2b at full width and reduced depth (``CRASH``): a run that
+    crashes at step ``at`` and is restarted by ``run_with_restarts`` from
+    its latest checkpoint (one every ``every`` steps) ends with the
+    parameters and moments of an uninterrupted run, bit for bit; its final
+    checkpoint, through ``checkpoint_metainfo`` and ``restore_from_bundle``,
+    comes back byte for byte. Returns the check's numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import CorpusSpec, HostBatcher, ShardedCorpus
+    from repro_torch.models import build_model
+    from repro_torch.train import (
+        FailurePlan, Trainer, TrainerConfig, checkpoint_metainfo,
+        restore_from_bundle, run_with_restarts,
+    )
+
+    spec = spec or CRASH
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
+                                     num_layers=spec["layers"])
+    bundle = build_model(cfg, device)
+    tcfg = TrainConfig(**TRAIN_CONFIG)
+    steps, batch, seq = spec["steps"], spec["batch"], spec["seq"]
+    corpus = ShardedCorpus(CorpusSpec(
+        num_shards=2, tokens_per_shard=(steps + 2) * batch * (seq + 1),
+        seed=TRAIN_SEED))
+    shards = [corpus.shard_tokens(i) for i in range(2)]
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        runs = {}
+        for name, plan in (("uninterrupted", None),
+                           ("crashed", FailurePlan(
+                               crash_at_steps=(spec["at"],)))):
+            lines = []
+            trainer = Trainer(
+                bundle, tcfg, HostBatcher(shards, batch_size=batch,
+                                          seq_len=seq),
+                TrainerConfig(ckpt_dir=str(Path(tmp) / name),
+                              ckpt_every=spec["every"], log_every=1,
+                              keep_last=1),
+                failure_plan=plan, log_fn=lines.append)
+            clock = StepClock(trainer.train_step)
+            trainer.train_step = clock
+            t0 = time.perf_counter()
+            final, restarts = run_with_restarts(
+                lambda: trainer.run(steps).final_step)
+            runs[name] = (clock.last, final, restarts,
+                          time.perf_counter() - t0, lines)
+        (a, fa, ra, wa, _), (b, fb, rb, wb, lines) = runs.values()
+        if (fa, ra, fb, rb) != (steps, 0, steps, 1) or (
+                f"[trainer] resumed from step {spec['at'] - spec['at'] % spec['every']}"
+                not in lines):
+            fail(f"crash and restart: final steps {fa}, {fb}, restarts {ra}, "
+                 f"{rb}; log {lines}")
+        if not tree_equal({"params": a.params, "opt": a.opt},
+                          {"params": b.params, "opt": b.opt}):
+            fail("crash and restart: the restarted run ends with other "
+                 "parameters or moments than the uninterrupted one")
+        del a, b, runs
+        torch.cuda.empty_cache()
+        src = Path(tmp) / "crashed"
+        t = time.perf_counter()
+        mi, payload = checkpoint_metainfo(src, steps)
+        out = restore_from_bundle(mi, dict(mi.split_pieces(payload)),
+                                  Path(tmp) / "bundle")
+        bundle_s = time.perf_counter() - t
+        original = src / f"step_{steps:08d}"
+        names = sorted(f.name for f in original.iterdir())
+        if names != sorted(f.name for f in out.iterdir()) or any(
+                (original / n).read_bytes() != (out / n).read_bytes()
+                for n in names):
+            fail("crash and restart: the checkpoint came back from its "
+                 "bundle changed")
+        log(f"crash and restart: {cfg.name} at {cfg.num_layers} layers, "
+            f"{steps} steps of {batch} x {seq} tokens, a checkpoint every "
+            f"{spec['every']}: crashed at step {spec['at']}, resumed, and "
+            f"ended bit-identical to the uninterrupted run ({wa:.1f}s and "
+            f"{wb:.1f}s); its step-{steps} checkpoint ({len(payload)} bytes "
+            f"in {len(names)} files, {mi.num_pieces} pieces, info-hash "
+            f"{mi.info_hash_hex[:16]}...) through checkpoint_metainfo and "
+            f"restore_from_bundle byte-identical in {bundle_s:.1f}s")
+        return {"layers": cfg.num_layers, "steps": steps,
+                "bit_identical": True, "bundle_bytes": len(payload),
+                "uninterrupted_s": wa, "crashed_s": wb,
+                "bundle_round_trip_s": bundle_s}
+
+
+def run_launchers(device=None):
+    """``python -m repro_torch.launch.train`` for a few steps into a
+    temporary directory and ``python -m repro_torch.launch.serve
+    --ckpt-dir`` on it, on the card at their reduced config (``device``,
+    if given, is passed on as ``--device``); each must exit 0 and print its
+    ``done step=`` or ``restored from`` line."""
+    extra = [] if device is None else ["--device", str(device)]
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = {}
+        for name, argv, want in (
+                ("train", ["repro_torch.launch.train", "--arch", TRAIN_ARCH,
+                           "--steps", "10", "--global-batch", "4",
+                           "--seq-len", "64", "--ckpt-dir", tmp],
+                 "done step=10 restarts=0"),
+                ("serve", ["repro_torch.launch.serve", "--arch", TRAIN_ARCH,
+                           "--ckpt-dir", tmp], f"restored from {tmp}")):
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *argv, *extra],
+                                  cwd=ROOT,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            out[name] = time.perf_counter() - t
+            log(f"launch.{name} (reduced config, on the card) exited "
+                f"{proc.returncode} in {out[name]:.1f}s:\n{proc.stdout.strip()}")
+            if proc.returncode != 0 or want not in proc.stdout:
+                fail(f"launch.{name}: exit {proc.returncode}, no '{want}' "
+                     f"line:\n{proc.stdout}\n{proc.stderr}")
+        return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2566,7 +3456,8 @@ def main() -> int:
                             for m in (kernels, k3, k4, k5, k6)))
         swarm_ptxas = check_ptxas("swarm", reports[0].result(),
                                   SWARM_KERNELS)
-        k4_ptxas = check_k4_ptxas(reports[1].result(), k4.kernel.HEAD_DIMS)
+        k4_ptxas, k4b_ptxas = check_k4_ptxas(reports[1].result(),
+                                             k4.kernel.HEAD_DIMS)
         k5_ptxas = check_ptxas("K5", reports[2].result(), K5_KERNELS)
         k6_ptxas = check_ptxas("K6", reports[3].result(), K6_KERNELS)
     log(f"K6's ring takes {k6.kernel.ring_config()['ring_bytes']} bytes of "
@@ -2574,12 +3465,14 @@ def main() -> int:
     log(f"build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f}s")
 
-    with phase("K1, K3, K4, K5, K6"):
+    with phase("K1, K3, K4, K4b, K5, K6"):
         k1 = check_k1(kernels, dev)
         k1["ptxas"] = {n: v for n, v in swarm_ptxas.items() if "K1" in n}
         check_k3(k3, dev)
         k4_record = check_k4(k4, dev)
         k4_record["ptxas"] = k4_ptxas
+        k4b_record = check_k4b(k4, dev)
+        k4b_record["ptxas"] = k4b_ptxas
         k5_record = check_k5(k5, dev)
         k5_record["ptxas"] = k5_ptxas
         k6_record = check_k6(k6, dev)
@@ -2599,9 +3492,7 @@ def main() -> int:
     log("broadcast path outcome: " + json.dumps(broadcast))
     counters = {"flash_attention": k4.flash_attention_cuda,
                 "ssd_chunked": k5.ssd_chunked_cuda,
-                "rglru_scan": k6.rglru_scan_cuda,
-                # no block kind launches the replaced K6: 0 on every path
-                "rglru_scan_replaced": k6.rglru_scan_replaced_cuda}
+                "rglru_scan": k6.rglru_scan_cuda}
     with phase(f"serving path {SERVE_ARCH} with its checks"):
         serving = run_serving_path((k4, k5, k6), counters)
     log("serving path outcome: " + json.dumps(serving))
@@ -2613,24 +3504,47 @@ def main() -> int:
         log(f"serving path {arch} outcome: " + json.dumps(outcome))
         paths[arch] = outcome["launches"]
         routes[arch] = outcome["routes"]
-    # each kernel's launches on the first serving path that runs it
+    torch.cuda.empty_cache()
+    train_counters = {"flash_attention": k4.flash_attention_cuda,
+                      "flash_attention_bwd": k4.flash_attention_bwd_cuda}
+    with phase(f"training path {TRAIN_ARCH} with its checkpoint"):
+        training = run_training_path(train_counters)
+    log("training path outcome: " + json.dumps(training))
+    with phase("float32 gradient checks"):
+        grads = gradient_checks((k4, k5, k6), {**counters, **train_counters})
+    log("gradient checks outcome: " + json.dumps(grads))
+    with phase("crash and restart"):
+        crash = crash_restart_check()
+    log("crash and restart outcome: " + json.dumps(crash))
+    with phase("launchers"):
+        run_launchers()
+    # each kernel's launches on the first path that runs it: serving for
+    # K4, K5 and K6, training for K4b
     k4_record["launches"] = paths[SERVE_ARCH]["flash_attention"]
+    k4b_record["launches"] = training["launches"]["flash_attention_bwd"]
     k5_record["launches"] = paths["mamba2_1_3b"]["ssd_chunked"]
     k6_record["launches"] = paths["recurrentgemma_2b"]["rglru_scan"]
-    k6_record["replaced_launches_by_path"] = {
-        arch: counts["rglru_scan_replaced"] for arch, counts in paths.items()}
     for record in (k4_record, k5_record, k6_record):
         record["launches_by_path"] = {
             arch: counts[record["name"]] for arch, counts in paths.items()}
+    k4_record["launches_by_path"][f"train {TRAIN_ARCH}"] = (
+        training["launches"]["flash_attention"])
+    k4b_record["launches_by_path"] = {
+        f"train {TRAIN_ARCH}": training["launches"]["flash_attention_bwd"]}
+    train_path = f"train {TRAIN_ARCH}"
     for record, wrapper in ((k4_record, k4.flash_attention_cuda),
                             (k5_record, k5.ssd_chunked_cuda)):
+        by_path = {arch: (routes[arch][record["name"]], counts[record["name"]])
+                   for arch, counts in paths.items()}
+        if record is k4_record:
+            by_path[train_path] = (training["routes"]["flash_attention"],
+                                   training["launches"]["flash_attention"])
         record["routes"] = check_routes(
             "K4" if record is k4_record else "K5", wrapper.route_launches,
-            {arch: (routes[arch][record["name"]], counts[record["name"]])
-             for arch, counts in paths.items()})
+            by_path)
     log(smi)  # again, so that the end of a long log names the card too
-    log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k5_record,
-                                k6_record]}))
+    log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k4b_record,
+                                k5_record, k6_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,11 @@ ingest modules (:mod:`repro_torch.data`), the checkpoint broadcast
 walkthrough (:mod:`repro_torch.examples.checkpoint_broadcast`), and the
 serving path: :mod:`repro_torch.configs`, the dense, Mamba-2 and
 RecurrentGemma models (:mod:`repro_torch.models`), :mod:`repro_torch.serve`
-and ``python -m repro_torch.launch.serve``.
+and ``python -m repro_torch.launch.serve``; and the training path:
+:mod:`repro_torch.train` (optimizer, train step, Trainer, checkpoints in
+the JAX package's format, fault tolerance) and ``python -m
+repro_torch.launch.train``, with the flash-attention backward as a CUDA
+kernel of its own.
 
 Device rule: entry points that run on a device take ``device=None``,
 which means CUDA and raises when CUDA is missing; ``device="cpu"`` runs

@@ -9,7 +9,8 @@ raises). ``nvcc.py`` builds and loads every CUDA source the same way.
 
   swarm/      masked rarest-argmin + max-min water-filling (the fleet tick)
   checksum/   the device checksum (checkpoint bundle integrity)
-  attention/  flash-attention forward (the models' sequence attention)
+  attention/  flash attention, forward and backward (the models' sequence
+              attention and its gradient)
   ssd/        the chunked Mamba-2 SSD mixer (the ssd blocks' sequence form)
   rglru/      the RG-LRU linear-recurrence scan (the rec blocks' sequence
               form)

@@ -158,14 +158,14 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// grid (ceil(sq / kBQ), hq, b)
-template <int D>
+// grid (ceil(sq / kBQ), hq, b); kLse: write each row's log-sum-exp
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     Operands st, int hq, int hkv, int sq, int skv,
                     int skv_valid, int causal, int window, float softcap,
-                    float scale) {
+                    float scale, float* __restrict__ lse) {
   using L = Layout<D>;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -305,6 +305,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r = 4 * ty + i;
     if (q_lo + r >= sq) continue;
     const float inv_l = 1.f / fmaxf(l[i], 1e-37f);
+    if constexpr (kLse) {
+      if (tx == 0) {
+        lse[(static_cast<long long>(bi) * hq + h) * sq + q_lo + r] =
+            m[i] + logf(fmaxf(l[i], 1e-37f));
+      }
+    }
     float* orow = o + bi * st.o.b + h * st.o.h + (q_lo + r) * st.o.s;
 #pragma unroll
     for (int g = 0; g < L::kGroups; ++g)
@@ -316,13 +322,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+template <int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Operands& st, int b, int hq, int hkv, int sq, int skv,
            int skv_valid, int causal, int window, float softcap, float scale,
            cudaStream_t s, int* route) {
   using L = Layout<D>;
-  auto kernel = attn_fwd_kernel<D>;
+  auto kernel = attn_fwd_kernel<D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::kBytes));
@@ -331,7 +337,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, L::kBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st, hq, hkv, sq,
-      skv, skv_valid, causal, window, softcap, scale);
+      skv, skv_valid, causal, window, softcap, scale, lse);
   err = cudaGetLastError();
   if (err == cudaSuccess) *route = kSimt;
   return static_cast<int>(err);
@@ -441,14 +447,15 @@ __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
 // tiles from the last (the most live kv tiles when causal) to the first.
 // Warp w owns query rows [16 w, 16 w + 16) of the tile; in the mma layouts
 // lane t holds rows t / 4 and t / 4 + 8 and key (or d) columns 2 (t % 4)
-// and 2 (t % 4) + 1 of each 8-wide n-tile.
-template <int D>
+// and 2 (t % 4) + 1 of each 8-wide n-tile. kLse: write each row's
+// log-sum-exp (a separate instance, so serving's keeps its registers).
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     Operands st, int b, int hq, int hkv, int sq, int skv,
                     int skv_valid, int causal, int window, float softcap,
-                    float scale) {
+                    float scale, float* __restrict__ lse) {
   using T = Tile<D>;
   extern __shared__ uint4 smem[];
   const uint32_t q_smem = smem_addr(smem);
@@ -627,6 +634,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float inv_l = 1.f / fmaxf(sum, 1e-37f);
     const int r = row0 + 8 * i;
     if (r >= sq) continue;
+    if constexpr (kLse) {
+      if (lane % 4 == 0) {
+        lse[(static_cast<long long>(bi) * hq + h) * sq + r] =
+            m[i] + logf(fmaxf(sum, 1e-37f));
+      }
+    }
     bf16* orow = o + bi * st.o.b + h * st.o.h + r * st.o.s + col0;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
@@ -637,12 +650,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+template <int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Operands& st, int b, int hq, int hkv, int sq, int skv,
            int skv_valid, int causal, int window, float softcap, float scale,
            cudaStream_t s, int* route) {
-  auto kernel = attn_fwd_kernel<D>;
+  auto kernel = attn_fwd_kernel<D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Tile<D>::kBytes));
@@ -653,7 +666,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<D>::kBytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), st, b, hq, hkv, sq,
-      skv, skv_valid, causal, window, softcap, scale);
+      skv, skv_valid, causal, window, softcap, scale, lse);
   err = cudaGetLastError();
   if (err == cudaSuccess) *route = kTensorCore;
   return static_cast<int>(err);
@@ -661,34 +674,485 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-// bfloat16 to the tensor cores, float32 to the SIMT kernel; the kernel
-// that launched writes its route
+// bfloat16 to the tensor cores, float32 to the SIMT kernel, each in the
+// instance that writes lse only when it is asked for; the kernel that
+// launched writes its route
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           const Operands& st, int b, int hq, int hkv, int sq, int skv,
-           int skv_valid, int causal, int window, float softcap, float scale,
-           cudaStream_t s, int* route) {
-  return dtype == kBF16
-             ? tc::launch<D>(q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid,
-                             causal, window, softcap, scale, s, route)
-             : simt::launch<D>(q, k, v, o, st, b, hq, hkv, sq, skv,
-                               skv_valid, causal, window, softcap, scale, s,
-                               route);
+           float* lse, const Operands& st, int b, int hq, int hkv, int sq,
+           int skv, int skv_valid, int causal, int window, float softcap,
+           float scale, cudaStream_t s, int* route) {
+  auto run = dtype == kBF16
+                 ? (lse ? tc::launch<D, true> : tc::launch<D, false>)
+                 : (lse ? simt::launch<D, true> : simt::launch<D, false>);
+  return run(q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal,
+             window, softcap, scale, s, route);
 }
 
 int launch_d(int d, int dtype, const void* q, const void* k, const void* v,
-             void* o, const Operands& st, int b, int hq, int hkv, int sq,
-             int skv, int skv_valid, int causal, int window, float softcap,
-             float scale, cudaStream_t s, int* route) {
+             void* o, float* lse, const Operands& st, int b, int hq, int hkv,
+             int sq, int skv, int skv_valid, int causal, int window,
+             float softcap, float scale, cudaStream_t s, int* route) {
   switch (d) {
-    case 16: return launch<16>(dtype, q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 32: return launch<32>(dtype, q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 64: return launch<64>(dtype, q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 128: return launch<128>(dtype, q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 256: return launch<256>(dtype, q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
+    case 16: return launch<16>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
+    case 256: return launch<256>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// ------------------------------------------------------------------ bwd
+//
+// K4b, the backward of the forward above: dQ, dK and dV from q, k, v, the
+// forward's output O and log-sum-exp, and dO. It is the counterpart of the
+// reference's hand-written VJP, repro/models/attention.py _flash_core_bwd
+// (not a Pallas kernel: the JAX package has no backward kernel), and
+// computes what that function computes:
+// - P = exp(s - lse) from the recomputed scores s = softcap(u), u = q k /
+//   sqrt(d), masked as in the forward (a masked P is 0);
+// - delta = rowsum(dO * O) (a pre-pass), dP = dO V^T, dS = P (dP - delta)
+//   times 1 - tanh(u / c)^2 with a softcap c, masked to 0;
+// - dV = P^T dO, dK = dS^T (q / sqrt(d)), dQ = dS K / sqrt(d); the key and
+//   value gradients of a GQA group sum over its query heads.
+// Both dtypes run the same SIMT kernels: tiles in shared memory as float32,
+// products with fmaf in float32, outputs rounded once to the input's dtype.
+//
+// The bound is operations: 10 d a live (q, k) pair (recompute q k, dV, dP,
+// dQ, dK); these kernels execute 14 d (the scores and dP twice, once in
+// each kernel), so the SIMT peak caps them at 10/14 of it. The design is
+// the simple one and deterministic: no atomics, so two runs are
+// bit-identical.
+// - dkdv_kernel: one CTA a (kv tile, kv head, batch) holds its K and V
+//   tiles and loops over the query heads of the group and the query tiles
+//   that see the tile (causal and window ranges solved), recomputing P and
+//   dS for each and adding P^T dO and dS^T Q into registers;
+// - dq_kernel: one CTA a (q tile, head, batch) holds its Q and dO tiles
+//   and loops over the live kv tiles, adding dS K into registers.
+// Tiles are square, kT rows (64, or 32 at d 256 to keep the accumulators
+// in registers); 256 threads a CTA; one CTA an SM (up to 169 KB of shared
+// memory). Tensor cores, wgmma and TMA are later work.
+
+namespace bwd {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// four consecutive elements (8- or 16-byte aligned) as float4, and back
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  __nv_bfloat162 lo, hi;
+  *reinterpret_cast<uint32_t*>(&lo) = u.x;
+  *reinterpret_cast<uint32_t*>(&hi) = u.y;
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+struct Operands {
+  Strides q, k, v, o, dout, dq, dk, dv;
+};
+
+template <int D>
+struct Cfg {
+  static constexpr int kT = D >= 256 ? 32 : 64;  // rows of a q or kv tile
+  static constexpr int kRow = D + 4;             // float stride of a tile row
+  static constexpr int kPRow = kT + 1;           // stride of a P or dS row
+  // scores: 16 x 16 threads, rows ty + 16 i, columns tx + 16 j
+  static constexpr int kS = kT / 16;
+  // accumulators: kCT threads across 4-column chunks, kRT across rows;
+  // rows ar + kRT i, columns 4 (ac + kCT j)
+  static constexpr int kCT = D / 4 < 16 ? D / 4 : 16;
+  static constexpr int kRT = kThreads / kCT;
+  static constexpr int kAR = kT / kRT;
+  static constexpr int kAC = D / (4 * kCT);
+  static_assert(kAR >= 1 && kAR * kRT == kT && kAC * kCT * 4 == D,
+                "the accumulator tiling covers the tile");
+  static constexpr size_t kBytes =
+      sizeof(float) * (4 * kT * kRow + 2 * kT * kPRow + 2 * kT);
+};
+static_assert(Cfg<128>::kBytes <= 232448 && Cfg<256>::kBytes <= 232448,
+              "inside a block's shared memory");
+
+// Rows [0, kT) of a tile whose row r starts at src + r * stride into shared
+// memory (row pitch Cfg<D>::kRow) times `scale`; rows at or past `avail`
+// are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long stride, int avail,
+                                          float scale) {
+  using C = Cfg<D>;
+  constexpr int kPer = D / 4;
+  for (int i = threadIdx.x; i < C::kT * kPer; i += kThreads) {
+    const int r = i / kPer, c = (i % kPer) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < avail) x = load4(src + r * stride + c);
+    store4(dst + r * C::kRow + c,
+           make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
+  }
+}
+
+// lse and delta of rows [q_lo, q_lo + kT) of one (batch, head); 0 past sq
+template <int D>
+__device__ __forceinline__ void load_rows(float* slse, float* sdelta,
+                                          const float* lse,
+                                          const float* delta, int q_lo,
+                                          int sq) {
+  for (int r = threadIdx.x; r < Cfg<D>::kT; r += kThreads) {
+    const bool ok = q_lo + r < sq;
+    slse[r] = ok ? lse[q_lo + r] : 0.f;
+    sdelta[r] = ok ? delta[q_lo + r] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// P (if kWriteP) and dS of one (q tile, kv tile) into shared memory, rows
+// the tile's queries and columns its keys. sQ holds q / sqrt(d), so the
+// scores are the forward SIMT kernel's (the same fmaf chain).
+template <int D, bool kWriteP>
+__device__ __forceinline__ void scores(const float* sQ, const float* sdO,
+                                       const float* sK, const float* sV,
+                                       const float* slse, const float* sdelta,
+                                       float* sP, float* sdS, int q_lo,
+                                       int k_lo, int sq, int skv, int causal,
+                                       int window, float softcap) {
+  using C = Cfg<D>;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[C::kS][C::kS], dp[C::kS][C::kS];
+#pragma unroll
+  for (int i = 0; i < C::kS; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kS; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 qv[C::kS], ov[C::kS], kv[C::kS], vv[C::kS];
+#pragma unroll
+    for (int i = 0; i < C::kS; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * C::kRow + d);
+      ov[i] = *reinterpret_cast<const float4*>(sdO + (ty + 16 * i) * C::kRow + d);
+      kv[i] = *reinterpret_cast<const float4*>(sK + (tx + 16 * i) * C::kRow + d);
+      vv[i] = *reinterpret_cast<const float4*>(sV + (tx + 16 * i) * C::kRow + d);
+    }
+#pragma unroll
+    for (int i = 0; i < C::kS; ++i)
+#pragma unroll
+      for (int j = 0; j < C::kS; ++j) {
+        s[i][j] = dot4(qv[i], kv[j], s[i][j]);
+        dp[i][j] = dot4(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < C::kS; ++i) {
+    const int r = ty + 16 * i, qi = q_lo + r;
+#pragma unroll
+    for (int j = 0; j < C::kS; ++j) {
+      const int c = tx + 16 * j, ki = k_lo + c;
+      float x = s[i][j], cd = 1.f;
+      if (softcap > 0.f) {
+        const float t = tanhf(x / softcap);
+        x = softcap * t;
+        cd = 1.f - t * t;
+      }
+      bool ok = qi < sq && ki < skv;
+      if (causal) ok = ok && qi >= ki;
+      if (window > 0) ok = ok && qi - ki < window;
+      const float p = ok ? expf(x - slse[r]) : 0.f;
+      const float ds = ok ? p * (dp[i][j] - sdelta[r]) * cd : 0.f;
+      if (kWriteP) sP[r * C::kPRow + c] = p;
+      sdS[r * C::kPRow + c] = ds;
+    }
+  }
+}
+
+// delta = rowsum(dO * O), one warp a row
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                 float* __restrict__ delta, Operands st, int hq, int sq,
+                 long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int qi = static_cast<int>(row % sq);
+  const int h = static_cast<int>((row / sq) % hq);
+  const long long bi = row / (static_cast<long long>(sq) * hq);
+  const T* orow = o + bi * st.o.b + h * st.o.h + qi * st.o.s;
+  const T* grow = dout + bi * st.dout.b + h * st.dout.h + qi * st.dout.s;
+  float acc = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 a = load4(orow + c), g = load4(grow + c);
+    acc = dot4(a, g, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// grid (ceil(skv / kT), hkv, b)
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, Operands st, int hq, int hkv, int sq,
+                int skv, int causal, int window, float softcap, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sdO = sQ + C::kT * C::kRow;
+  float* sK = sdO + C::kT * C::kRow;
+  float* sV = sK + C::kT * C::kRow;
+  float* sP = sV + C::kT * C::kRow;
+  float* sdS = sP + C::kT * C::kPRow;
+  float* slse = sdS + C::kT * C::kPRow;
+  float* sdelta = slse + C::kT;
+
+  const int k_lo = blockIdx.x * C::kT;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int group = hq / hkv;
+  load_tile<T, D>(sK, k + bi * st.k.b + hk * st.k.h + k_lo * st.k.s, st.k.s,
+                  skv - k_lo, 1.f);
+  load_tile<T, D>(sV, v + bi * st.v.b + hk * st.v.h + k_lo * st.v.s, st.v.s,
+                  skv - k_lo, 1.f);
+
+  // the query tiles that see a key of this tile
+  const int q_begin = causal ? k_lo : 0;
+  int q_end = sq;
+  if (window > 0) {
+    const long long last = static_cast<long long>(k_lo) + C::kT - 1 + window;
+    if (last < q_end) q_end = static_cast<int>(last);
+  }
+  const int i_begin = q_begin / C::kT;
+  const int i_end = q_begin < q_end ? (q_end + C::kT - 1) / C::kT : i_begin;
+
+  const int ar = threadIdx.x / C::kCT, ac = threadIdx.x % C::kCT;
+  float4 adk[C::kAR][C::kAC], adv[C::kAR][C::kAC];
+#pragma unroll
+  for (int i = 0; i < C::kAR; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kAC; ++j)
+      adk[i][j] = adv[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const long long row0 = (static_cast<long long>(bi) * hq + h) * sq;
+    for (int it = i_begin; it < i_end; ++it) {
+      const int q_lo = it * C::kT;
+      __syncthreads();  // the last tile's Q, dO, P and dS are no longer read
+      load_tile<T, D>(sQ, q + bi * st.q.b + h * st.q.h + q_lo * st.q.s,
+                      st.q.s, sq - q_lo, scale);
+      load_tile<T, D>(sdO,
+                      dout + bi * st.dout.b + h * st.dout.h + q_lo * st.dout.s,
+                      st.dout.s, sq - q_lo, 1.f);
+      load_rows<D>(slse, sdelta, lse + row0, delta + row0, q_lo, sq);
+      __syncthreads();
+      scores<D, true>(sQ, sdO, sK, sV, slse, sdelta, sP, sdS, q_lo, k_lo, sq,
+                      skv, causal, window, softcap);
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < C::kT; ++r) {
+#pragma unroll
+        for (int j = 0; j < C::kAC; ++j) {
+          const int c = 4 * (ac + C::kCT * j);
+          const float4 o4 = *reinterpret_cast<const float4*>(sdO + r * C::kRow + c);
+          const float4 q4 = *reinterpret_cast<const float4*>(sQ + r * C::kRow + c);
+#pragma unroll
+          for (int i = 0; i < C::kAR; ++i) {
+            const int kr = ar + C::kRT * i;
+            const float p = sP[r * C::kPRow + kr];
+            const float ds = sdS[r * C::kPRow + kr];
+            adv[i][j].x = fmaf(p, o4.x, adv[i][j].x);
+            adv[i][j].y = fmaf(p, o4.y, adv[i][j].y);
+            adv[i][j].z = fmaf(p, o4.z, adv[i][j].z);
+            adv[i][j].w = fmaf(p, o4.w, adv[i][j].w);
+            adk[i][j].x = fmaf(ds, q4.x, adk[i][j].x);
+            adk[i][j].y = fmaf(ds, q4.y, adk[i][j].y);
+            adk[i][j].z = fmaf(ds, q4.z, adk[i][j].z);
+            adk[i][j].w = fmaf(ds, q4.w, adk[i][j].w);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C::kAR; ++i) {
+    const int kr = ar + C::kRT * i;
+    if (k_lo + kr >= skv) continue;
+#pragma unroll
+    for (int j = 0; j < C::kAC; ++j) {
+      const int c = 4 * (ac + C::kCT * j);
+      store4(dk + bi * st.dk.b + hk * st.dk.h + (k_lo + kr) * st.dk.s + c,
+             adk[i][j]);
+      store4(dv + bi * st.dv.b + hk * st.dv.h + (k_lo + kr) * st.dv.s + c,
+             adv[i][j]);
+    }
+  }
+}
+
+// grid (ceil(sq / kT), hq, b)
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, Operands st, int hq, int hkv, int sq,
+              int skv, int causal, int window, float softcap, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sdO = sQ + C::kT * C::kRow;
+  float* sK = sdO + C::kT * C::kRow;
+  float* sV = sK + C::kT * C::kRow;
+  float* sdS = sV + C::kT * C::kRow + C::kT * C::kPRow;
+  float* slse = sdS + C::kT * C::kPRow;
+  float* sdelta = slse + C::kT;
+
+  const int q_lo = blockIdx.x * C::kT;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const long long row0 = (static_cast<long long>(bi) * hq + h) * sq;
+  load_tile<T, D>(sQ, q + bi * st.q.b + h * st.q.h + q_lo * st.q.s, st.q.s,
+                  sq - q_lo, scale);
+  load_tile<T, D>(sdO, dout + bi * st.dout.b + h * st.dout.h + q_lo * st.dout.s,
+                  st.dout.s, sq - q_lo, 1.f);
+  load_rows<D>(slse, sdelta, lse + row0, delta + row0, q_lo, sq);
+
+  // the live kv range of this q tile (as the forward)
+  int k_end = skv;
+  if (causal && q_lo + C::kT < k_end) k_end = q_lo + C::kT;
+  const int k_begin = window > 0 && q_lo - window + 1 > 0 ? q_lo - window + 1 : 0;
+  const int j_begin = k_begin / C::kT;
+  const int j_end = (k_end + C::kT - 1) / C::kT;
+
+  const int ar = threadIdx.x / C::kCT, ac = threadIdx.x % C::kCT;
+  float4 adq[C::kAR][C::kAC];
+#pragma unroll
+  for (int i = 0; i < C::kAR; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kAC; ++j) adq[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int jt = j_begin; jt < j_end; ++jt) {
+    const int k_lo = jt * C::kT;
+    __syncthreads();  // the last tile's K, V and dS are no longer read
+    load_tile<T, D>(sK, k + bi * st.k.b + hk * st.k.h + k_lo * st.k.s, st.k.s,
+                    skv - k_lo, 1.f);
+    load_tile<T, D>(sV, v + bi * st.v.b + hk * st.v.h + k_lo * st.v.s, st.v.s,
+                    skv - k_lo, 1.f);
+    __syncthreads();
+    scores<D, false>(sQ, sdO, sK, sV, slse, sdelta, nullptr, sdS, q_lo, k_lo,
+                     sq, skv, causal, window, softcap);
+    __syncthreads();
+#pragma unroll 2
+    for (int c2 = 0; c2 < C::kT; ++c2) {
+#pragma unroll
+      for (int j = 0; j < C::kAC; ++j) {
+        const int c = 4 * (ac + C::kCT * j);
+        const float4 k4 = *reinterpret_cast<const float4*>(sK + c2 * C::kRow + c);
+#pragma unroll
+        for (int i = 0; i < C::kAR; ++i) {
+          const float ds = sdS[(ar + C::kRT * i) * C::kPRow + c2];
+          adq[i][j].x = fmaf(ds, k4.x, adq[i][j].x);
+          adq[i][j].y = fmaf(ds, k4.y, adq[i][j].y);
+          adq[i][j].z = fmaf(ds, k4.z, adq[i][j].z);
+          adq[i][j].w = fmaf(ds, k4.w, adq[i][j].w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C::kAR; ++i) {
+    const int r = ar + C::kRT * i;
+    if (q_lo + r >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < C::kAC; ++j) {
+      const int c = 4 * (ac + C::kCT * j);
+      const float4 a = adq[i][j];
+      store4(dq + bi * st.dq.b + h * st.dq.h + (q_lo + r) * st.dq.s + c,
+             make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale));
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, const Operands& st, int b, int hq, int hkv,
+           int sq, int skv, int causal, int window, float softcap,
+           float scale, cudaStream_t s) {
+  using C = Cfg<D>;
+  auto dkdv = dkdv_kernel<T, D>;
+  auto dqk = dq_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kBytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(dqk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(C::kBytes));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(b) * hq * sq;
+  const long long blocks = (rows + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  delta_kernel<T, D><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const T*>(o), tdo, delta, st, hq, sq, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv<<<dim3((skv + C::kT - 1) / C::kT, hkv, b), kThreads, C::kBytes, s>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      st, hq, hkv, sq, skv, causal, window, softcap, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<dim3((sq + C::kT - 1) / C::kT, hq, b), kThreads, C::kBytes, s>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), st, hq, hkv, sq, skv,
+      causal, window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(int d, const void* q, const void* k, const void* v,
+             const void* o, const void* dout, const float* lse, float* delta,
+             void* dq, void* dk, void* dv, const Operands& st, int b, int hq,
+             int hkv, int sq, int skv, int causal, int window, float softcap,
+             float scale, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -703,14 +1167,17 @@ const char* attn_error_string(int err) {
 // [3..5] k, [6..8] v, [9..11] o), the last dimension contiguous, every row
 // 16-byte aligned, all of `dtype` (0 float32, 1 bfloat16). d in {16, 32,
 // 64, 128, 256}; hq a multiple of hkv; 0 <= skv_valid <= skv; window 0 =
-// unbounded; softcap 0 = off. bfloat16 launches the tensor-core kernel and
-// float32 the SIMT one; the launch that succeeded writes which into *route
-// (0 SIMT, 1 tensor cores). Returns cudaErrorInvalidValue for anything else.
+// unbounded; softcap 0 = off. lse, if not null, receives each query row's
+// log-sum-exp, (b, hq, sq) float32 contiguous, from an instance of its own
+// (training passes it; serving does not, and runs the kernel it ran before
+// lse existed). bfloat16 launches the tensor-core kernel and float32 the
+// SIMT one; the launch that succeeded writes which into *route (0 SIMT, 1 tensor
+// cores). Returns cudaErrorInvalidValue for anything else.
 int attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                    int dtype, int b, int hq, int hkv, int sq, int skv, int d,
-                    const long long* strides, int skv_valid, int causal,
-                    int window, float softcap, float scale, void* stream,
-                    int* route) {
+                    float* lse, int dtype, int b, int hq, int hkv, int sq,
+                    int skv, int d, const long long* strides, int skv_valid,
+                    int causal, int window, float softcap, float scale,
+                    void* stream, int* route) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
       skv_valid < 0 || skv_valid > skv || window < 0 || softcap < 0.f ||
       hq > 65535 || b > 65535 || strides == nullptr || route == nullptr) {
@@ -723,9 +1190,44 @@ int attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
   if (dtype != kF32 && dtype != kBF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_d(d, dtype, q, k, v, o, st, b, hq, hkv, sq, skv, skv_valid,
-                  causal, window, softcap, scale,
+  return launch_d(d, dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv,
+                  skv_valid, causal, window, softcap, scale,
                   static_cast<cudaStream_t>(stream), route);
+}
+
+// The backward of attn_fwd_launch with every key valid (K4b): from q, k, v,
+// the forward's output o and lse and the output's gradient dout, writes dq
+// (like q), dk and dv (like k); delta is scratch of (b, hq, sq) float32.
+// strides: eight triples (batch, head, sequence) for q, k, v, o, dout, dq,
+// dk, dv in that order, each tensor's last dimension contiguous and its
+// rows 16-byte aligned. Three launches on the stream: delta, dk/dv, dq.
+// Both dtypes take the SIMT kernels.
+int attn_bwd_launch(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    float* delta, void* dq, void* dk, void* dv, int dtype,
+                    int b, int hq, int hkv, int sq, int skv, int d,
+                    const long long* strides, int causal, int window,
+                    float softcap, float scale, void* stream) {
+  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
+      window < 0 || softcap < 0.f || hq > 65535 || hkv > 65535 ||
+      b > 65535 || strides == nullptr || lse == nullptr ||
+      delta == nullptr || (dtype != kF32 && dtype != kBF16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long* t = strides;
+  const bwd::Operands st{{t[0], t[1], t[2]},    {t[3], t[4], t[5]},
+                         {t[6], t[7], t[8]},    {t[9], t[10], t[11]},
+                         {t[12], t[13], t[14]}, {t[15], t[16], t[17]},
+                         {t[18], t[19], t[20]}, {t[21], t[22], t[23]}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == kBF16
+             ? bwd::launch_d<__nv_bfloat16>(d, q, k, v, o, dout, lse, delta,
+                                            dq, dk, dv, st, b, hq, hkv, sq,
+                                            skv, causal, window, softcap,
+                                            scale, s)
+             : bwd::launch_d<float>(d, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, st, b, hq, hkv, sq, skv, causal,
+                                    window, softcap, scale, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""CUDA flash-attention forward (K4) for Hopper: build, binding and launch
-wrapper.
+"""CUDA flash attention for Hopper, the forward (K4) and its backward
+(K4b): build, binding and launch wrappers.
 
 The kernels live in ``csrc/attention_kernels.cu`` behind a plain C
 interface, built and loaded at first use by :mod:`repro_torch.kernels.nvcc`
@@ -23,7 +23,21 @@ refused launch never runs, and a later synchronisation would not say so).
 Its plain-integer ``launches`` counter goes up by one where it launches a
 kernel, and nowhere else; ``route_launches`` counts the same launches by
 ``(dtype, route)``, the route being the kernel that the C entry reports it
-launched (``"tensor_core"`` or ``"simt"``).
+launched (``"tensor_core"`` or ``"simt"``). With ``return_lse`` it also
+returns each query row's log-sum-exp, which the backward reads, from a
+kernel instance of its own; serving asks for none and runs the instance
+that writes none, unchanged by the backward's arrival.
+
+:func:`flash_attention_bwd_cuda` (K4b) is the backward, the counterpart of
+the reference's hand-written VJP ``_flash_core_bwd``
+(``repro/models/attention.py:181-215``; the JAX package has no backward
+kernel): ``dq, dk, dv`` from q, k, v, the forward's output and ``lse``,
+and the output's gradient, with every key valid. Both dtypes run the SIMT
+kernels (float32 tiles and arithmetic, outputs rounded once), three
+launches a call (``delta = rowsum(dO * O)``, then dK/dV, then dQ), no
+atomics: two calls give the same bits. It reads every operand through its
+strides, as the forward does; its ``launches`` counts calls, one a call
+(it has one route, so it keeps no ``route_launches``).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ import torch
 
 from ...compat import require_hopper
 from .. import nvcc
+from .ref import NEG_INF
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_kernels.cu"
 NVCC_FLAGS = nvcc.BASE_FLAGS
@@ -52,16 +67,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _STRIDES = ctypes.c_longlong * 12
+_BWD_STRIDES = ctypes.c_longlong * 24
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE, NVCC_FLAGS)
     lib.attn_fwd_launch.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I, _I,
-        _F, _F, _P, ctypes.POINTER(_I),
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I,
+        _I, _F, _F, _P, ctypes.POINTER(_I),
     ]
     lib.attn_fwd_launch.restype = _I
+    lib.attn_bwd_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _BWD_STRIDES, _I, _I, _F, _F, _P,
+    ]
+    lib.attn_bwd_launch.restype = _I
     lib.attn_error_string.argtypes = [_I]
     lib.attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -115,9 +136,11 @@ def flash_attention_cuda(
     window: int = 0,
     softcap: float = 0.0,
     skv_valid: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """``softmax(q kᵀ / sqrt(d)) v`` on the card, ``(B, Hq, Sq, D)`` in
-    q's dtype and layout; the same contract as
+    q's dtype and layout, and with ``return_lse`` its ``(B, Hq, Sq)``
+    float32 log-sum-exp beside it; the same contract as
     :func:`~repro_torch.kernels.attention.ref.attention_bhsd_ref`."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
@@ -129,14 +152,19 @@ def flash_attention_cuda(
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
     require_hopper(q.device)
     out = torch.empty_like(q)  # q's layout where q is dense
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or skv == 0:
-        return out.zero_()
+        # no key: the reference's m and l stay at their starts
+        out.zero_()
+        return (out, lse.fill_(NEG_INF)) if return_lse else out
     layout = _STRIDES(*strides(q), *strides(k), *strides(v), *strides(out))
     route = _I(-1)
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.attn_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPES[q.dtype], b, hq, hkv, sq, skv, d, layout, skv_valid,
             int(causal), int(window), float(softcap), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -148,8 +176,78 @@ def flash_attention_cuda(
     flash_attention_cuda.launches += 1
     flash_attention_cuda.route_launches[
         (str(q.dtype).removeprefix("torch."), ROUTES[route.value])] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _usable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels can read it through its strides, else a
+    contiguous copy (a gradient handed in by autograd may come in any
+    layout)."""
+    try:
+        strides(t)
+    except ValueError:
+        return t.contiguous()
+    return t
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,              # (B, Hq, Sq, D)
+    k: torch.Tensor,              # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    out: torch.Tensor,            # (B, Hq, Sq, D), the forward's output
+    dout: torch.Tensor,           # (B, Hq, Sq, D), its gradient
+    lse: torch.Tensor,            # (B, Hq, Sq) float32, the forward's
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` on the card, each in the layout and dtype of q, k
+    and v; the contract of
+    :func:`~repro_torch.kernels.attention.ref.attention_bwd_ref`. q, k, v
+    and out are read where they lie (they come from the forward); dout is
+    copied once if its layout is not one the kernels read."""
+    _check(q, k, v)
+    dout = _usable(dout)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (b, hq, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, hq, sq)} "
+                         f"tensor on {q.device} (got {tuple(lse.shape)} "
+                         f"{lse.dtype})")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
+    if q.numel() == 0 or skv == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    require_hopper(q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    layout = _BWD_STRIDES(*(x for t in (q, k, v, out, dout, dq, dk, dv)
+                            for x in strides(t)))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        err = lib.attn_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], b, hq, hkv, sq,
+            skv, d, layout, int(causal), int(window), float(softcap),
+            1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.attn_error_string(err).decode()
+        raise RuntimeError(f"attention backward kernel failed: CUDA error "
+                           f"{err} ({msg})")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.route_launches = collections.Counter()
+flash_attention_bwd_cuda.launches = 0

@@ -5,7 +5,7 @@ It runs on any device. The CPU tests hold it against the JAX package's
 holds the CUDA kernel against it on the card.
 
 It materialises the full ``(Sq, Skv)`` score matrix in float32, O(S^2)
-memory, so it is unambiguous rather than fast. Two forms:
+memory, so it is unambiguous rather than fast. Two forms of the forward:
 
 - :func:`attention_ref` in the model's ``(B, S, H, D)`` layout, the
   counterpart of ``repro/kernels/attention/ref.py`` ``attention_ref``
@@ -18,6 +18,18 @@ Scores are ``q·k / sqrt(d)`` with q cast to float32 and scaled first, the
 optional softcap ``c·tanh(s/c)`` is applied before the masks, masked
 scores are ``-2e38``, the softmax is float32 and the output takes the
 input's dtype. GQA: query head ``h`` reads key/value head ``h // (Hq/Hkv)``.
+With ``return_lse`` the forward also gives each row's log-sum-exp
+``m + log(max(l, 1e-37))`` in float32, as the reference's
+``_flash_fwd_scan`` does (``repro/models/attention.py:138-150``).
+
+:func:`attention_bwd_ref` is the backward (K4b's plain version), a port of
+the reference's hand-written VJP ``_flash_core_bwd``
+(``repro/models/attention.py:181-215``) without its kv blocks: ``P`` is
+recomputed from the forward's ``lse``, ``delta = rowsum(dO * O)``, ``dS =
+P (dP - delta)``, times ``1 - tanh(u / c)^2`` on the pre-cap scores ``u``
+where there is a softcap, masked to 0; the query gradient is taken through
+the ``1/sqrt(d)`` scale, and the key and value gradients of a GQA group sum
+over its query heads, as autodiff of ``_expand_kv`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +43,11 @@ NEG_INF = -2.0e38
 
 def softcap_fn(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
+
+
+def softcap_grad(u: torch.Tensor, cap: float) -> torch.Tensor:
+    """The softcap's derivative at the pre-cap scores ``u``."""
+    return 1.0 - torch.square(torch.tanh(u / cap))
 
 
 def _mask(sq: int, skv: int, *, causal: bool, window: int, q_offset: int,
@@ -55,7 +72,10 @@ def attention_bhsd_ref(
     softcap: float = 0.0,
     q_offset: int = 0,
     skv_valid: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """``out`` in q's dtype, or ``(out, lse)`` with ``return_lse``, lse
+    ``(B, Hq, Sq)`` float32."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -69,7 +89,54 @@ def attention_bhsd_ref(
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(torch.clamp(l, min=1e-37))
+    return out, lse.reshape(b, hq, sq)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,              # (B, Hq, Sq, D)
+    k: torch.Tensor,              # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    out: torch.Tensor,            # (B, Hq, Sq, D), the forward's output
+    dout: torch.Tensor,           # (B, Hq, Sq, D), its cotangent
+    lse: torch.Tensor,            # (B, Hq, Sq) float32, the forward's
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` in the dtypes of q, k and v, computed in float32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(f32).reshape(b, hkv, g, sq, d) * scale
+    kf, vf = k.to(f32), v.to(f32)
+    gf = dout.to(f32).reshape(b, hkv, g, sq, d)
+    lse5 = lse.to(f32).reshape(b, hkv, g, sq)
+    delta = (gf * out.to(f32).reshape(b, hkv, g, sq, d)).sum(dim=-1)
+    u = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)        # pre-cap scores
+    s = softcap_fn(u, softcap) if softcap > 0 else u
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=0,
+                 skv_valid=skv, device=q.device)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - lse5[..., None])
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, gf)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap > 0:
+        ds = ds * softcap_grad(u, softcap)
+    ds = torch.where(mask, ds, torch.zeros((), device=q.device))
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def attention_ref(

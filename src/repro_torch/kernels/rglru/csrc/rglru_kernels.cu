@@ -15,7 +15,9 @@
 // eighth of the bytes bound. What held the replaced design back (below)
 // was how few bytes it kept in flight.
 //
-// The ring kernel (rglru_scan_kernel, the one ops.rglru_scan launches).
+// The ring kernel (rglru_scan_kernel, the one ops.rglru_scan launches, and
+// its gradient too: the backward is the same recurrence on the inputs
+// reversed in time, see ops.py).
 // One CTA is one warp and owns one batch row and kLanes = 32 channels: one
 // lane a channel, one 128-byte line a time step. It streams tiles of
 // kSteps = 32 steps x 32 channels of a and b through a ring of kStages = 8
@@ -36,7 +38,7 @@
 // the runs): at the serving shape 0.25 ms one launch at a time (two thirds
 // of the bytes bound; the wrapper's host time is in it) and 0.21-0.22 ms
 // over ten launches back to back (78-81 %), against 0.44 ms back to back
-// for the replaced kernel below; a torch.add of the same bytes takes 0.19
+// for the replaced design; a torch.add of the same bytes takes 0.19
 // ms. More stages, or longer or shorter tiles, were no faster,
 // and the same ring with the recurrence taken out (out = a + b) took as
 // long: what is left is the access pattern (one 128-byte line a CTA a
@@ -44,24 +46,20 @@
 // Filling the ring 16 bytes a copy was slower, so one 4-byte route takes
 // every W.
 //
-// The replaced kernel (rglru_scan_replaced_kernel, kept as a control that
-// no path launches): one thread a (batch, channel) chain, 64 threads a
-// block, kUnroll = 16 steps of a and b loaded into registers and then
-// walked. At the serving shape that is 10,240 threads, 320 warps, about
-// 2.4 an SM, so an SM has at most about 10 KB in flight, and only at the
-// start of each group: 32-39 % of the bound on the H100. It goes in the
-// next change that touches K6; PERF.md keeps its paired times.
+// The design it replaced, one thread a (batch, channel) chain with 16
+// steps of loads in registers, kept at most about 10 KB in flight an SM
+// (32-39 % of the bound); PERF.md keeps its paired times.
 //
-// Rounding is pinned in both: each step is __fadd_rn(__fmul_rn(a, h), b),
+// Rounding is pinned: each step is __fadd_rn(__fmul_rn(a, h), b),
 // the product rounded and then the sum, never one fused multiply-add, in
 // time order. The plain version (ref.py) computes a * h and then + b as
-// two separately rounded tensor operations, so each kernel equals it bit
+// two separately rounded tensor operations, so the kernel equals it bit
 // for bit on the card; nothing is re-associated.
 //
 // Plain C interface (extern "C", pointers and integers only), built by
 // nvcc into a shared library and loaded with ctypes by kernel.py. The entry
-// points launch on the caller's stream, allocate nothing, and return the
-// cudaError_t of their launch (0 = success).
+// point launches on the caller's stream, allocates nothing, and returns the
+// cudaError_t of its launch (0 = success).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,44 +166,6 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// ------------------------------------------------------------------ replaced
-
-constexpr int kThreads = 64;   // channels a block: 160 blocks at W 2560, B 4
-constexpr int kUnroll = 16;    // time steps whose loads are issued together
-
-__global__ void __launch_bounds__(kThreads)
-rglru_scan_replaced_kernel(const float* __restrict__ a,
-                           const float* __restrict__ b,
-                           const float* __restrict__ h0,
-                           float* __restrict__ out, int64_t s, int64_t w) {
-  const int64_t ch = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (ch >= w) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * s * w + ch;
-  const float* ap = a + base;
-  const float* bp = b + base;
-  float* op = out + base;
-  float h = h0 != nullptr ? h0[static_cast<int64_t>(blockIdx.y) * w + ch]
-                          : 0.f;
-  int64_t t = 0;
-  for (; t + kUnroll <= s; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      av[u] = __ldg(ap + (t + u) * w);
-      bv[u] = __ldg(bp + (t + u) * w);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      h = rglru_step(av[u], h, bv[u]);
-      op[(t + u) * w] = h;
-    }
-  }
-  for (; t < s; ++t) {
-    h = rglru_step(__ldg(ap + t * w), h, __ldg(bp + t * w));
-    op[t * w] = h;
-  }
-}
-
 bool valid(int64_t batch, int64_t s, int64_t w) {
   return batch >= 1 && batch <= 65535 && s >= 1 && w >= 1;
 }
@@ -261,20 +221,6 @@ int rglru_scan_launch(const void* a, const void* b, const void* h0,
                   static_cast<unsigned>(batch));
   rglru_scan_kernel<<<grid, kLanes, kRingBytes,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(h0), static_cast<float*>(out), s, w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same contract through the replaced one-thread-a-chain kernel.
-int rglru_scan_replaced_launch(const void* a, const void* b, const void* h0,
-                               void* out, int64_t batch, int64_t s,
-                               int64_t w, void* stream) {
-  if (!valid(batch, s, w)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((w + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(batch));
-  rglru_scan_replaced_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(h0), static_cast<float*>(out), s, w);
   return static_cast<int>(cudaGetLastError());

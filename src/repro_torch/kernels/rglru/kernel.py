@@ -1,6 +1,6 @@
-"""CUDA RG-LRU scan (K6) for Hopper: build, binding and launch wrappers.
+"""CUDA RG-LRU scan (K6) for Hopper: build, binding and launch wrapper.
 
-The kernels live in ``csrc/rglru_kernels.cu`` behind a plain C interface,
+The kernel lives in ``csrc/rglru_kernels.cu`` behind a plain C interface,
 built and loaded at first use by :mod:`repro_torch.kernels.nvcc`
 (``sm_90a``, ``ctypes``). Nothing is compiled or loaded when this module is
 imported.
@@ -19,16 +19,12 @@ sum in time order, so the kernel equals the sequential plain version bit
 for bit. Unlike the Pallas kernel it needs no time-block or lane
 multiples: the kernel masks the ragged time and channel edges.
 
-:func:`rglru_scan_replaced_cuda` is the design that the ring replaced
-(one thread a chain, 16 steps of loads in registers), kept as a control
-for ``chip_smoke.py`` to time beside it; ``ops.rglru_scan`` never reaches
-it. It goes in the next slice that touches K6 (``ROADMAP.md``).
-
-Both take contiguous float32 CUDA tensors, allocate the output with torch,
-launch on torch's current stream, and raise when the C call returns a
-CUDA error (the C entries refuse a batch outside 1-65,535 or an empty
-``s`` or ``w``). Each has its own plain-integer ``launches`` counter, which
-goes up by one where its kernel was launched, and nowhere else.
+It takes contiguous float32 CUDA tensors, allocates the output with
+torch, launches on torch's current stream, and raises when the C call
+returns a CUDA error (the C entry refuses a batch outside 1-65,535 or an
+empty ``s`` or ``w``). Its plain-integer ``launches`` counter goes up by
+one where the kernel was launched, and nowhere else; the gradient's
+launches (``ops.RGLRUScan``) count there too.
 """
 
 from __future__ import annotations
@@ -52,9 +48,8 @@ _I64 = ctypes.c_int64
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE, NVCC_FLAGS)
-    for entry in (lib.rglru_scan_launch, lib.rglru_scan_replaced_launch):
-        entry.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
-        entry.restype = ctypes.c_int
+    lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
+    lib.rglru_scan_launch.restype = ctypes.c_int
     lib.rglru_scan_config.argtypes = [_P]
     lib.rglru_scan_config.restype = None
     lib.rglru_error_string.argtypes = [ctypes.c_int]
@@ -73,10 +68,9 @@ def ring_config() -> dict[str, int]:
     return dict(zip(("lanes", "steps", "stages", "ring_bytes"), got))
 
 
-def _require(who: str, t: torch.Tensor, name: str, shape: tuple,
-             device) -> None:
+def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
     if t.device.type != "cuda":
-        raise ValueError(f"{who} takes CUDA tensors ({name} is on "
+        raise ValueError(f"rglru_scan_cuda takes CUDA tensors ({name} is on "
                          f"{t.device})")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, a on {device}")
@@ -87,54 +81,36 @@ def _require(who: str, t: torch.Tensor, name: str, shape: tuple,
                          f"{shape} (got {tuple(t.shape)})")
 
 
-def _launch(wrapper, entry: str, a: torch.Tensor, b: torch.Tensor,
-            h0: torch.Tensor | None) -> torch.Tensor:
-    """Check the operands, launch the C entry ``entry`` (unless the output
-    is empty) and count the launch on ``wrapper``; returns the output."""
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor | None = None) -> torch.Tensor:
+    """``(B, S, W)`` float32 decays ``a`` and increments ``b``, ``(B, W)``
+    float32 ``h0`` (None: zeros) -> the ``(B, S, W)`` float32 trajectory,
+    equal bit for bit to
+    :func:`~repro_torch.kernels.rglru.ref.rglru_scan_ref` on the card."""
     if a.dim() != 3:
         raise ValueError(f"a must be (B, S, W) (got {tuple(a.shape)})")
     bsz, s, w = a.shape
-    who = wrapper.__name__
-    _require(who, a, "a", (bsz, s, w), a.device)
-    _require(who, b, "b", (bsz, s, w), a.device)
+    _require(a, "a", (bsz, s, w), a.device)
+    _require(b, "b", (bsz, s, w), a.device)
     if h0 is not None:
-        _require(who, h0, "h0", (bsz, w), a.device)
+        _require(h0, "h0", (bsz, w), a.device)
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
     require_hopper(a.device)
     lib = _lib()
     with torch.cuda.device(a.device):
-        err = getattr(lib, entry)(
+        err = lib.rglru_scan_launch(
             a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
             out.data_ptr(), bsz, s, w,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     if err != 0:
         msg = lib.rglru_error_string(err).decode()
-        raise RuntimeError(f"rglru scan kernel ({entry}) failed: CUDA error "
-                           f"{err} ({msg})")
-    wrapper.launches += 1
+        raise RuntimeError(f"rglru scan kernel failed: CUDA error {err} "
+                           f"({msg})")
+    rglru_scan_cuda.launches += 1
     return out
 
 
-def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
-                    h0: torch.Tensor | None = None) -> torch.Tensor:
-    """``(B, S, W)`` float32 decays ``a`` and increments ``b``, ``(B, W)``
-    float32 ``h0`` (None: zeros) -> the ``(B, S, W)`` float32 trajectory,
-    equal bit for bit to
-    :func:`~repro_torch.kernels.rglru.ref.rglru_scan_ref` on the card.
-    The ring kernel."""
-    return _launch(rglru_scan_cuda, "rglru_scan_launch", a, b, h0)
-
-
-def rglru_scan_replaced_cuda(a: torch.Tensor, b: torch.Tensor,
-                             h0: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`rglru_scan_cuda`'s contract through the replaced
-    one-thread-a-chain kernel: a control, never on a model's path."""
-    return _launch(rglru_scan_replaced_cuda, "rglru_scan_replaced_launch",
-                   a, b, h0)
-
-
 rglru_scan_cuda.launches = 0
-rglru_scan_replaced_cuda.launches = 0

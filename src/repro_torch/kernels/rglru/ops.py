@@ -1,4 +1,5 @@
-"""Public RG-LRU scan, mirroring ``repro/kernels/rglru/ops.py``.
+"""Public RG-LRU scan, mirroring ``repro/kernels/rglru/ops.py``, with a
+gradient.
 
 :func:`rglru_scan` has the reference wrapper's signature and ``(B, S, W)``
 layout: the recurrence is computed in float32 and the trajectory returned
@@ -7,6 +8,16 @@ padding exist for the Pallas grid, and K6 masks its own ragged edge.
 Dispatch is by the tensors' device: a CUDA tensor launches K6
 (:mod:`.kernel`) or raises, a CPU tensor takes the plain version
 (:mod:`.ref`). Nothing falls back from one to the other.
+
+Where a gradient is wanted the call goes through :class:`RGLRUScan`. The
+backward of ``h_t = a_t h_{t-1} + b_t`` is the same recurrence run
+backwards, ``dh_t = g_t + a_{t+1} dh_{t+1}``, so it launches K6 itself (the
+plain version on the CPU) on the inputs flipped in time: ``a`` shifted by
+one step (``a_{t+1}``, 0 past the end) and the trajectory's gradient ``g``,
+both reversed with ``torch.flip``, the result reversed back. Then ``db_t
+= dh_t``, ``da_t = dh_t h_{t-1}`` (``h_{-1} = h0``) and ``dh0 = a_0 dh_0``.
+The reference differentiates an associative scan instead, which rounds in
+another order.
 """
 
 from __future__ import annotations
@@ -17,14 +28,57 @@ from .kernel import rglru_scan_cuda
 from .ref import rglru_scan_ref
 
 
+def _scan(a: torch.Tensor, b: torch.Tensor,
+          h0: torch.Tensor | None) -> torch.Tensor:
+    """The float32 trajectory, by device."""
+    if a.device.type == "cuda":
+        f32 = [t.to(torch.float32).contiguous() for t in (a, b)]
+        h = None if h0 is None else h0.to(torch.float32).contiguous()
+        return rglru_scan_cuda(*f32, h)
+    if a.device.type == "cpu":
+        return rglru_scan_ref(a.to(torch.float32), b.to(torch.float32), h0)
+    raise ValueError(f"rglru_scan: unsupported device {a.device}")
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
+                   h0: torch.Tensor | None, g: torch.Tensor):
+    """``(da, db, dh0)`` in float32 from the float32 decays ``a``, the
+    trajectory ``h`` and its gradient ``g``; ``dh0`` is None without
+    ``h0``. One scan (K6 on the card) over the reversed inputs."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    dh = torch.flip(_scan(torch.flip(a_next, (1,)),
+                          torch.flip(g.to(torch.float32), (1,)), None), (1,))
+    first = torch.zeros_like(h[:, :1]) if h0 is None else \
+        h0.to(torch.float32)[:, None]
+    h_prev = torch.cat([first, h[:, :-1]], dim=1)
+    dh0 = None if h0 is None else a[:, 0] * dh[:, 0]
+    return dh * h_prev, dh, dh0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """K6 forward, K6 on the reversed inputs backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        af = a.to(torch.float32)
+        h = _scan(af, b, h0)
+        ctx.save_for_backward(af, h, h0)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return h.to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        af, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_bwd(af, h, h0, g)
+        return (da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]),
+                None if dh0 is None else dh0.to(h0.dtype))
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor | None = None) -> torch.Tensor:
     """``h_t = a_t · h_{t-1} + b_t`` with ``h_{-1} = h0`` (None: zeros);
     ``a``, ``b`` ``(B, S, W)``, ``h0`` ``(B, W)``."""
-    if a.device.type == "cuda":
-        f32 = [t.to(torch.float32).contiguous() for t in (a, b)]
-        h = None if h0 is None else h0.to(torch.float32).contiguous()
-        return rglru_scan_cuda(*f32, h).to(a.dtype)
-    if a.device.type == "cpu":
-        return rglru_scan_ref(a, b, h0)
-    raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return RGLRUScan.apply(a, b, h0)
+    return _scan(a, b, h0).to(a.dtype)

@@ -12,8 +12,13 @@ its local attention through K4, e.g.::
     python -m repro_torch.launch.serve --arch recurrentgemma_2b
 
 The MoE archs and seamless raise ``NotImplementedError`` (``ROADMAP.md``
-queue 1 item 6). ``--ckpt-dir`` restore waits for the port of
-``train/checkpoint.py``.
+queue 1 items 1 and 2). ``--ckpt-dir`` restores the ``params`` leaves of
+the latest checkpoint under it (one that ``launch.train`` or the JAX
+package's trainer wrote: the format is shared) into the seeded model, as
+the reference does, and serves those weights::
+
+    python -m repro_torch.launch.train --arch gemma2_2b --ckpt-dir /tmp/c
+    python -m repro_torch.launch.serve --ckpt-dir /tmp/c
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ from ..compat import resolve_device
 from ..configs import ARCH_IDS, get_config
 from ..models import build_model
 from ..serve import ServeConfig, ServeEngine
+from ..train import checkpoint as ckpt
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
+    """Serve; returns the served tokens, one array a request."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="gemma2_2b", choices=ARCH_IDS)
     ap.add_argument("--ckpt-dir", default=None,
@@ -44,14 +51,14 @@ def main(argv=None) -> None:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore waits for the port of "
-            "train/checkpoint.py (ROADMAP.md queue 1 item 6)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduce()
     bundle = build_model(cfg, dev)
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    if args.ckpt_dir:
+        restored, _ = ckpt.load_checkpoint(args.ckpt_dir, {"params": params})
+        params = restored["params"]
+        print(f"[launch.serve] restored from {args.ckpt_dir}")
 
     engine = ServeEngine(bundle, params, ServeConfig(
         max_new_tokens=args.new_tokens, temperature=args.temperature))
@@ -63,6 +70,7 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     print(f"[launch.serve] {args.requests} reqs x {args.new_tokens} new tokens "
           f"in {dt:.2f}s ({sum(map(len, outs))/dt:.1f} tok/s) on {dev}")
+    return outs
 
 
 if __name__ == "__main__":

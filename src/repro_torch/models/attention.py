@@ -15,7 +15,7 @@ attention has no kernel in either package and stays plain torch.
 The weight layouts are the JAX package's (``wq (d, hq, h)``, ``wk``/``wv
 (d, hkv, h)``, ``wo (hq, h, d)``). All softmax arithmetic is float32
 whatever the compute dtype. Cross attention and the split-KV decode of a
-mesh are not ported yet (``ROADMAP.md`` queue 1 items 6 and 7).
+mesh are not ported yet (``ROADMAP.md`` queue 1 items 2 and 3).
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ axes name how the JAX package shards a leaf on a mesh; the port runs on
 one card and keeps them only as documentation. The JAX package's sharding
 helpers (``constrain``, ``constrain_bsd``, ``constrain_bshd``,
 ``gather_sp``) have no counterpart here: there is no mesh on one card
-(``ROADMAP.md`` queue 1 item 7).
+(``ROADMAP.md`` queue 1 item 3).
 
 The functions take and return tensors of the caller's dtype and compute
 where the reference computes (norms, RoPE and softcaps in float32).
@@ -101,20 +101,24 @@ class ParamTree(torch.nn.Module):
     ``ModuleList`` of its items, a :class:`ParamSpec` an uninitialised
     parameter of its shape. Parameter names are the spec tree's paths
     joined with dots. ``node["key"]`` and ``"key" in node`` read a child or
-    parameter, so layer code takes a module or a dict alike."""
+    parameter, so layer code takes a module or a dict alike. Parameters
+    require a gradient only when built ``trainable`` (training's); serving's
+    do not."""
 
-    def __init__(self, specs: dict, dtype: torch.dtype, device):
+    def __init__(self, specs: dict, dtype: torch.dtype, device,
+                 trainable: bool = False):
         super().__init__()
         for key, spec in specs.items():
             if isinstance(spec, ParamSpec):
                 self.register_parameter(key, torch.nn.Parameter(
                     torch.empty(spec.shape, dtype=dtype, device=device),
-                    requires_grad=False))
+                    requires_grad=trainable))
             elif isinstance(spec, list):
                 self.add_module(key, torch.nn.ModuleList(
-                    ParamTree(s, dtype, device) for s in spec))
+                    ParamTree(s, dtype, device, trainable) for s in spec))
             else:
-                self.add_module(key, ParamTree(spec, dtype, device))
+                self.add_module(key, ParamTree(spec, dtype, device,
+                                               trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

@@ -8,10 +8,17 @@ names follow the JAX parameter tree's paths with each stacked group split
 into its layers (``groups.<i>.<g>.attn.wq`` holds ``groups/<i>/attn/wq[g]``),
 so :func:`~repro_torch.models.convert.params_from_jax` is a name map.
 
-Device rule: ``device=None`` means the CUDA card and raises without one;
-``device="cpu"`` runs every kernel's plain PyTorch version. The loss and
-training entry points wait for the training slice (``ROADMAP.md`` queue 1
-item 6).
+Device rule: ``build_model(cfg)`` (``device=None``) puts the model on the
+CUDA card and raises without one; ``device="cpu"`` runs every kernel's
+plain PyTorch version on the host.
+
+Training enters through ``loss_fn(params, batch)``, the reference's loss
+(``repro/models/model.py:112-123``), on parameters made with
+``init(generator, trainable=True)``; it runs the same decoder as serving
+with gradients on, through each kernel's ``torch.autograd.Function``
+(K4 with its backward K4b, K5, K6), and with remat per scan group as the
+config says. Serving's ``forward_fn``, ``prefill_fn`` and ``decode_fn``
+run under ``torch.no_grad()``. :mod:`repro_torch.train` drives the loss.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ class ModelBundle:
     device: torch.device
     init: Callable[[torch.Generator], Params]
     skeleton: Callable[[], Params]
+    loss_fn: Callable[..., tuple[torch.Tensor, dict]]
     forward_fn: Callable[..., torch.Tensor]
     prefill_fn: Callable[..., tuple[torch.Tensor, Cache]]
     decode_fn: Callable[..., tuple[torch.Tensor, Cache]]
@@ -84,25 +92,39 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     pdtype = _dtype(cfg.param_dtype)
     cdtype = _dtype(cfg.compute_dtype)
 
-    def skeleton() -> Params:
-        """The parameter modules, uninitialised, on the device."""
-        return ParamTree(tf.layer_specs(cfg), pdtype, dev)
+    def skeleton(trainable: bool = False) -> Params:
+        """The parameter modules, uninitialised, on the device; their
+        parameters require a gradient when ``trainable``."""
+        return ParamTree(tf.layer_specs(cfg), pdtype, dev, trainable)
 
-    def init(generator: torch.Generator) -> Params:
+    def init(generator: torch.Generator, trainable: bool = False) -> Params:
         """Parameters drawn from ``generator`` (a generator of the
         bundle's device) by the reference's init rule."""
-        return load_tree(skeleton(), init_params(specs, generator, pdtype, dev))
+        return load_tree(skeleton(trainable),
+                         init_params(specs, generator, pdtype, dev))
 
-    @torch.no_grad()
-    def forward(params: Params, batch: dict, *, want_cache: bool = False,
-                last_only: bool = False):
-        tokens = batch["tokens"].to(dev)
+    def decode_batch(params: Params, batch: dict, *, want_cache: bool = False,
+                     last_only: bool = False):
+        tokens = torch.as_tensor(batch["tokens"]).to(dev)
         b, s = tokens.shape
         positions = batch.get("positions")
         positions = (default_positions(cfg, b, s, device=dev)
                      if positions is None else positions.to(dev))
         return tf.decoder_apply(params, tokens, positions, cfg,
                                 want_cache=want_cache, last_only=last_only)
+
+    forward = torch.no_grad()(decode_batch)
+
+    def loss_fn(params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Mean next-token NLL of ``batch["targets"]`` and the reference's
+        metrics, with gradients on. As in the reference, the cross entropy
+        takes no z-loss here (``z_weight=0.0``, whatever
+        ``TrainConfig.z_loss`` says)."""
+        logits, _ = decode_batch(params, batch)
+        targets = torch.as_tensor(batch["targets"]).to(dev)
+        loss, metrics = cross_entropy(logits, targets, z_weight=0.0)
+        metrics["loss"] = loss
+        return loss, metrics
 
     def forward_fn(params: Params, batch: dict) -> torch.Tensor:
         return forward(params, batch)[0]
@@ -122,6 +144,6 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
 
     return ModelBundle(
         cfg=cfg, specs=specs, device=dev, init=init, skeleton=skeleton,
-        forward_fn=forward_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        loss_fn=loss_fn, forward_fn=forward_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
         cache_init=cache_init,
     )

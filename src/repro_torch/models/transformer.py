@@ -8,7 +8,12 @@ leading 'layers' axis and drives the stack with ``jax.lax.scan``; here the
 parameters are one module per layer (``groups.<i>.<g>`` is repetition
 ``g`` of pattern position ``i``) and a Python loop runs them in the same
 order: for each repetition, the pattern's positions in turn, then the
-tail.
+tail. With gradients on and ``cfg.remat == "block"`` (the default), each
+repetition runs under ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, the counterpart of the reference wrapping each scan
+group in ``jax.checkpoint`` (``repro/models/transformer.py:97-111``): its
+activations are recomputed in the backward, so a training step runs each
+group's forward, K4 included, twice.
 
 Caches mirror the structure: ``{"groups": {i: [entry per repetition]},
 "tail": {i: entry}}``. An attention entry is ``{"self": {"k", "v"[,
@@ -27,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
@@ -41,9 +47,9 @@ Params = Any
 Cache = Any
 
 _LATER = {
-    "moe": "MoE FFNs (models/moe.py) wait for ROADMAP.md queue 1 item 6",
+    "moe": "MoE FFNs (models/moe.py) wait for ROADMAP.md queue 1 item 1",
     "encoder": "the encoder and cross attention (seamless) wait for "
-               "ROADMAP.md queue 1 item 6",
+               "ROADMAP.md queue 1 item 2",
 }
 
 
@@ -106,14 +112,22 @@ def layer_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def layers_in_order(params: Params, cfg: ModelConfig):
-    """``(kind, layer params, (section, i, g))`` in execution order: each
-    repetition of the pattern, then the tail (``g`` is None there)."""
+def layer_runs(params: Params, cfg: ModelConfig):
+    """The layers in execution order, in runs of ``(kind, layer params,
+    (section, i, g))``: one run for each repetition of the pattern (what
+    remat recomputes as one), then the tail, a layer a run (``g`` is None
+    there)."""
     for g in range(cfg.group_count):
-        for i, kind in enumerate(cfg.block_pattern):
-            yield kind, params["groups"][str(i)][g], ("groups", str(i), g)
+        yield [(kind, params["groups"][str(i)][g], ("groups", str(i), g))
+               for i, kind in enumerate(cfg.block_pattern)]
     for i, kind in enumerate(cfg.tail_pattern):
-        yield kind, params["tail"][str(i)], ("tail", str(i), None)
+        yield [(kind, params["tail"][str(i)], ("tail", str(i), None))]
+
+
+def layers_in_order(params: Params, cfg: ModelConfig):
+    """``(kind, layer params, (section, i, g))`` in execution order."""
+    for run in layer_runs(params, cfg):
+        yield from run
 
 
 def _entry(cache: Cache, where) -> dict:
@@ -195,6 +209,16 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
+def _run_layers(x: torch.Tensor, run: list, positions: torch.Tensor,
+                cfg: ModelConfig) -> tuple[torch.Tensor, list]:
+    """One run of :func:`layer_runs` over ``x``: ``(x, cache entries)``."""
+    entries = []
+    for kind, layer, _ in run:
+        x, entry = block_apply_seq(layer, x, positions, cfg, kind)
+        entries.append(entry)
+    return x, entries
+
+
 def decoder_apply(
     params: Params,
     tokens: torch.Tensor,        # (B, S) int
@@ -207,20 +231,34 @@ def decoder_apply(
     """Returns (logits (B, S, V), cache-or-None). ``last_only`` applies the
     final norm, head and softcap to the last position alone and returns
     (B, 1, V): the same values as the full logits' last row, since each
-    position's norm and head are its own."""
+    position's norm and head are its own. With gradients on and no cache
+    asked for (the loss) and ``cfg.remat == "block"``, each repetition of
+    the pattern runs under a checkpoint."""
+    if cfg.remat not in ("block", "none"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the port has 'block' and 'none'")
+    remat = (cfg.remat == "block" and torch.is_grad_enabled()
+             and not want_cache)
     x = embed_lookup(params["embed"], tokens, cfg.d_model)
     cache: dict = {
         "groups": {str(i): [] for i in range(len(cfg.block_pattern))},
         "tail": {},
     }
-    for kind, layer, (section, i, g) in layers_in_order(params, cfg):
-        x, entry = block_apply_seq(layer, x, positions, cfg, kind)
+    for run in layer_runs(params, cfg):
+        _, _, (section, _, _) = run[0]
+        if remat and section == "groups":
+            x = checkpoint(lambda x, run: _run_layers(x, run, positions,
+                                                      cfg)[0],
+                           x, run, use_reentrant=False)
+            continue
+        x, entries = _run_layers(x, run, positions, cfg)
         if not want_cache:
             continue
-        if g is None:
-            cache[section][i] = entry
-        else:
-            cache[section][i].append(entry)
+        for (_, _, (section, i, g)), entry in zip(run, entries):
+            if g is None:
+                cache[section][i] = entry
+            else:
+                cache[section][i].append(entry)
     if last_only:
         x = x[:, -1:]
     return _head(params, x, cfg), (cache if want_cache else None)

@@ -10,10 +10,18 @@ bfloat16. The CUDA kernels themselves are checked on the card by
 ``chip_smoke.py``; here the bfloat16 kernel's arithmetic (split
 probabilities on the tensor cores) is emulated in plain torch and held to
 the bands ``chip_smoke.py`` holds the kernel to.
+
+The backward's plain version (``attention_bwd_ref``, K4b's counterpart on
+the CPU, reached through ``ops.FlashAttention``) is held against
+``jax.vjp`` of the reference's ``flash_attention`` (its hand-written VJP
+``_flash_core_bwd``) and ``local_attention`` (autodiff of its q-block
+scan) at 2e-5 in float32, the forward's own tolerance; the readings are
+about 1e-6.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +31,8 @@ from repro.kernels.attention import attention_ref as jax_attention_ref
 from repro.kernels.attention import flash_attention as jax_flash_attention
 from repro.models import attention as jax_attn
 from repro_torch.kernels.attention import (
-    attention_bhsd_ref, attention_ref, flash_attention, flash_attention_cuda,
+    attention_bhsd_ref, attention_bwd_ref, attention_ref, flash_attention,
+    flash_attention_bwd_cuda, flash_attention_cuda,
 )
 from repro_torch.kernels.attention import kernel as k4_kernel
 from repro_torch.models import attention as port_attn
@@ -265,3 +274,106 @@ def test_bf16_probabilities_miss_the_band(case):
     bhsd, kw, want, _ = _split_case(case)
     control = _emulate_tensor_core_kernel(*bhsd, **kw, split=False)
     assert _rel_l2(control, want) > K4_REL_L2
+
+
+# --------------------------------------------------------------------------- backward
+
+GRAD_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _vjp_both(jfn, tfn, arrays, g):
+    """(port grads, reference grads) of q, k, v for the cotangent g."""
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in arrays))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    got = torch.autograd.grad(tfn(*leaves), leaves, torch.from_numpy(g))
+    return got, want
+
+
+# (b, s, hq, hkv, d, window, softcap): GQA, MQA, a window, the softcap, S
+# ragged against the reference's kv block
+BWD_CASES = [
+    (2, 40, 4, 2, 16, 0, 50.0),
+    (1, 37, 4, 1, 32, 0, 0.0),
+    (2, 48, 4, 2, 16, 16, 50.0),
+    (1, 70, 2, 2, 64, 0, 30.0),
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,cap", BWD_CASES)
+def test_flash_attention_gradient_vs_jax_vjp(b, s, hq, hkv, d, window, cap):
+    q, k, v = _qkv(20, b, s, s, hq, hkv, d)
+    g = np.random.default_rng(21).normal(size=q.shape).astype(np.float32)
+    got, want = _vjp_both(
+        lambda q, k, v: jax_attn.flash_attention(
+            q, k, v, causal=True, window=window, block_kv=16,
+            attn_softcap=cap),
+        lambda q, k, v: port_attn.flash_attention(
+            q, k, v, causal=True, attn_softcap=cap) if window == 0 else
+        port_attn.local_attention(q, k, v, window=window, attn_softcap=cap),
+        (q, k, v), g)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(a), _np(w), **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("s,window", [(48, 16), (40, 64)])
+def test_local_attention_gradient_vs_jax_vjp(s, window):
+    """Autodiff of the reference's q-block scan, window below and above
+    the sequence."""
+    q, k, v = _qkv(22, 2, s, s, 4, 2, 16)
+    g = np.random.default_rng(23).normal(size=q.shape).astype(np.float32)
+    got, want = _vjp_both(
+        lambda q, k, v: jax_attn.local_attention(
+            q, k, v, window=window, block_q=16, attn_softcap=50.0),
+        lambda q, k, v: port_attn.local_attention(
+            q, k, v, window=window, attn_softcap=50.0),
+        (q, k, v), g)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(a), _np(w), **GRAD_TOL, err_msg=name)
+
+
+def test_forward_lse_is_the_row_log_sum_exp():
+    """``return_lse`` gives ``m + log(l)`` of the masked, capped scores, in
+    float32, for the backward to recompute P from."""
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in _qkv(24, 2, 30, 30, 4, 2, 16))
+    out, lse = attention_bhsd_ref(q, k, v, causal=True, window=7,
+                                  softcap=20.0, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 30)
+    torch.testing.assert_close(out, attention_bhsd_ref(
+        q, k, v, causal=True, window=7, softcap=20.0), rtol=0, atol=0)
+    kk = k.repeat_interleave(2, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q / 4.0, kk)
+    s = 20.0 * torch.tanh(s / 20.0)
+    i = torch.arange(30)
+    mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < 7)
+    want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want, atol=2e-6, rtol=2e-6)
+
+
+def test_gradients_on_cpu_tensors_take_the_plain_backward():
+    """With a gradient wanted, the model's attention goes through the
+    autograd Function; on CPU tensors it launches no kernel, and its
+    backward equals ``attention_bwd_ref`` on the saved tensors."""
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(25, 1, 20, 20, 4, 2, 16))
+    g = torch.from_numpy(np.random.default_rng(26).normal(
+        size=(1, 20, 4, 16)).astype(np.float32))
+    before = (flash_attention_cuda.launches, flash_attention_bwd_cuda.launches)
+    out = flash_attention(q, k, v, causal=True, softcap=30.0)
+    # the model-layout output is a view of the Function's
+    assert "FlashAttention" in out.grad_fn.next_functions[0][0].name()
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == before
+    qb, kb, vb = (t.detach().transpose(1, 2) for t in (q, k, v))
+    o, lse = attention_bhsd_ref(qb, kb, vb, causal=True, softcap=30.0,
+                                return_lse=True)
+    want = attention_bwd_ref(qb, kb, vb, o, g.transpose(1, 2), lse,
+                             causal=True, softcap=30.0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w.transpose(1, 2), rtol=0, atol=0)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_cuda(qb, kb, vb, o, g.transpose(1, 2), lse)

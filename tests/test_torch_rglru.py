@@ -6,9 +6,13 @@ side runs the Pallas kernel in interpret mode (its default off a TPU) and
 its associative-scan oracle; the port's ``kernels.rglru.ops.rglru_scan``
 takes its sequential plain version on a CPU tensor. Scans are held at the
 reference's own 1e-4 (``tests/test_kernels.py:44-53``), layers at 1e-5 in
-float32. The CUDA kernels themselves (the ring kernel and the replaced
-one-thread-a-chain kernel) are checked on the card by ``chip_smoke.py``;
-here both wrappers refuse CPU tensors without counting a launch.
+float32. The CUDA kernel itself is checked on the card by
+``chip_smoke.py``; here its wrapper refuses CPU tensors without counting a
+launch. Gradients (``ops.RGLRUScan``: the same scan run backwards over the
+reversed inputs) are held against ``jax.vjp`` of the reference's
+associative scan and ``jax.grad`` of its ``rglru_sequence`` at 1e-5 in
+relative L2 per leaf: the associative scan rounds in another order (the
+readings here are about 1e-7).
 """
 
 import jax
@@ -24,8 +28,9 @@ from repro.models import rglru as jr
 from repro.models.layers import init_params as jax_init_params
 from repro_torch.configs import get_config
 from repro_torch.kernels.rglru import (
-    rglru_scan, rglru_scan_cuda, rglru_scan_ref, rglru_scan_replaced_cuda,
+    rglru_scan, rglru_scan_cuda, rglru_scan_ref,
 )
+from repro_torch.kernels.rglru import ops as k6_ops
 from repro_torch.models import rglru as pr
 
 SCAN_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -109,25 +114,95 @@ def test_cpu_tensors_take_the_plain_version_not_the_kernel():
     assert rglru_scan_cuda.launches == before
 
 
-def test_replaced_kernel_takes_cuda_tensors_only():
-    """The replaced design's wrapper, like ``rglru_scan_cuda``, raises on
-    CPU tensors and counts no launch."""
-    a, x, h0 = (_t(v) for v in _scan_inputs(4, 1, 12, 8))
-    before = (rglru_scan_cuda.launches, rglru_scan_replaced_cuda.launches)
-    with pytest.raises(ValueError, match="rglru_scan_replaced_cuda takes "
-                                         "CUDA tensors"):
-        rglru_scan_replaced_cuda(a, x, h0)
-    assert (rglru_scan_cuda.launches,
-            rglru_scan_replaced_cuda.launches) == before
-
-
 def test_cpu_scan_leaves_both_launch_counters_alone():
+    """Neither the forward nor the backward scan counts a launch on the
+    CPU (the backward's launches count on the same counter)."""
     a, x, h0 = (_t(v) for v in _scan_inputs(5, 2, 40, 24))
-    before = (rglru_scan_cuda.launches, rglru_scan_replaced_cuda.launches)
+    before = rglru_scan_cuda.launches
     rglru_scan(a, x, h0)
     rglru_scan(a, x)
-    assert (rglru_scan_cuda.launches,
-            rglru_scan_replaced_cuda.launches) == before
+    a.requires_grad_()
+    rglru_scan(a, x, h0).sum().backward()
+    assert a.grad is not None
+    assert rglru_scan_cuda.launches == before
+
+
+GRAD_REL_L2 = 1e-5
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", [(1, 300, 100, True),
+                                           (2, 77, 40, False)])
+def test_rglru_scan_gradient_vs_jax(b, s, w, with_h0):
+    a, x, h0 = _scan_inputs(10, b, s, w)
+    g = np.random.default_rng(11).normal(size=(b, s, w)).astype(np.float32)
+    if not with_h0:
+        h0 = np.zeros_like(h0)     # the reference's zeros; the port's None
+    _, vjp = jax.vjp(jax_rglru_scan_ref, *(jnp.asarray(v) for v in (a, x, h0)))
+    want = vjp(jnp.asarray(g))
+    leaves = [_t(v).requires_grad_() for v in ((a, x, h0) if with_h0
+                                               else (a, x))]
+    got = torch.autograd.grad(rglru_scan(*leaves), leaves, _t(g))
+    for name, gv, wv in zip(("da", "db", "dh0"), got, want):
+        assert _rel_l2(_np(gv), _np(wv)) < GRAD_REL_L2, name
+
+
+def test_rglru_scan_backward_is_the_reversed_scan():
+    """``dh_t = g_t + a_{t+1} dh_{t+1}`` written out: ``db = dh``, ``da_t
+    = dh_t h_{t-1}``, ``dh0 = a_0 dh_0``, exactly as the backward computes
+    them with the sequential plain scan."""
+    a, x, h0 = (_t(v) for v in _scan_inputs(12, 2, 30, 8))
+    g = _t(np.random.default_rng(13).normal(size=(2, 30, 8))
+           .astype(np.float32))
+    h = rglru_scan_ref(a, x, h0)
+    dh = torch.empty_like(g)
+    carry = torch.zeros_like(g[:, 0])
+    for t in range(29, -1, -1):
+        nxt = a[:, t + 1] if t + 1 < 30 else torch.zeros_like(carry)
+        carry = nxt * carry + g[:, t]
+        dh[:, t] = carry
+    h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+    da, db, dh0 = k6_ops.rglru_scan_bwd(a, h, h0, g)
+    torch.testing.assert_close(db, dh, rtol=0, atol=0)
+    torch.testing.assert_close(da, dh * h_prev, rtol=0, atol=0)
+    torch.testing.assert_close(dh0, a[:, 0] * dh[:, 0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rglru_sequence_gradient_vs_jax(block, with_state):
+    """``jax.grad`` of the reference's ``rglru_sequence`` (weighted sum of
+    its output and final state) against the port's, for every parameter,
+    the input and the initial state."""
+    jparams, params, cfg = block
+    rng = np.random.default_rng(14)
+    w = cfg.resolved_lru_width
+    x = rng.normal(size=(2, 13, cfg.d_model)).astype(np.float32)
+    h0 = rng.normal(size=(2, w)).astype(np.float32) if with_state else None
+    gy = rng.normal(size=(2, 13, cfg.d_model)).astype(np.float32)
+    gh = rng.normal(size=(2, w)).astype(np.float32)
+
+    def jloss(p, xx, hh):
+        y, (hl, _) = jr.rglru_sequence(p, xx, cfg, hh)
+        return jnp.sum(y * gy) + jnp.sum(hl * gh)
+
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    jg = jax.grad(jloss, argnums=(0, 1, 2) if with_state else (0, 1))(
+        jparams, jnp.asarray(x), jh0)
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    tx = _t(x).requires_grad_()
+    th0 = None if h0 is None else _t(h0).requires_grad_()
+    y, (hl, _) = pr.rglru_sequence(leaves, tx, cfg, th0)
+    loss = (y * _t(gy)).sum() + (hl * _t(gh)).sum()
+    wrt = [*leaves.values(), tx] + ([th0] if with_state else [])
+    got = dict(zip([*leaves, "x", "h0"], torch.autograd.grad(loss, wrt)))
+    want = dict(jg[0], x=jg[1], **({"h0": jg[2]} if with_state else {}))
+    assert set(got) == set(want)
+    for name in want:
+        assert _rel_l2(_np(got[name]), _np(want[name])) < GRAD_REL_L2, name
 
 
 # --------------------------------------------------------------------------- the block

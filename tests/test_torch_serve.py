@@ -164,7 +164,11 @@ def test_launch_serve_state_archs_on_the_cpu(arch, capsys):
 
 
 def test_launch_serve_refuses_what_waits():
-    with pytest.raises(NotImplementedError, match="train/checkpoint.py"):
+    """The MoE archs wait for their port; ``--ckpt-dir`` (ported) refuses a
+    directory that holds no checkpoint."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        launch_serve.main(["--device", "cpu", "--arch", "dbrx_132b"])
+    with pytest.raises(FileNotFoundError, match="no checkpoints under"):
         launch_serve.main(["--device", "cpu", "--ckpt-dir", "nowhere"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -10,7 +10,10 @@ layers at 1e-5 in float32. The CUDA kernels themselves are checked on the
 card by ``chip_smoke.py``; here the bfloat16 route's arithmetic (float32
 operands split into bf16 terms on the tensor cores) is rehearsed in plain
 torch and held to the reference's 1e-4 and to the band ``chip_smoke.py``
-holds the kernel to.
+holds the kernel to. Gradients (``ops.SSDChunked``: K5's forward, the
+plain chunked version differentiated for the backward) are held against
+``jax.grad`` of the reference's ``ssd_chunked`` and ``ssd_sequence`` at
+1e-5 in relative L2 per leaf (the readings are about 1e-7).
 """
 
 import jax
@@ -413,3 +416,70 @@ def test_ssd_cache_init_matches_the_reference():
     for k in port:
         assert tuple(port[k].shape) == ref[k].shape
         assert port[k].dtype == torch.bfloat16 and not port[k].any()
+
+
+# --------------------------------------------------------------------------- gradients
+
+GRAD_REL_L2 = 1e-5
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_chunked_gradient_vs_jax(with_h0):
+    """Every input's gradient through y and h_last, a ragged last chunk."""
+    b, h, s, p, n, q = 2, 3, 37, 8, 16, 16
+    x, dt, a, bm, cm = _mixer_inputs(15, b, h, s, p, n)
+    x, dt = x.transpose(0, 2, 1, 3).copy(), dt.transpose(0, 2, 1).copy()
+    rng = np.random.default_rng(16)
+    h0 = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    gy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    gh = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    args = [x, dt, a, bm, cm] + ([h0] if with_h0 else [])
+
+    def jloss(*xs):
+        y, hl = js.ssd_chunked(*xs[:5], q, xs[5] if with_h0 else None)
+        return jnp.sum(y * gy) + jnp.sum(hl * gh)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(args))))(
+        *(jnp.asarray(v) for v in args))
+    leaves = [_t(v).requires_grad_() for v in args]
+    y, hl = ssd_chunked(*leaves[:5], q, leaves[5] if with_h0 else None)
+    before = k5_kernel.ssd_chunked_cuda.launches
+    got = torch.autograd.grad((y * _t(gy)).sum() + (hl * _t(gh)).sum(),
+                              leaves)
+    assert k5_kernel.ssd_chunked_cuda.launches == before
+    for name, gv, wv in zip(("x", "dt", "a_neg", "bmat", "cmat", "h0"),
+                            got, want):
+        assert _rel_l2(_np(gv), _np(wv)) < GRAD_REL_L2, name
+
+
+def test_ssd_sequence_gradient_vs_jax(block):
+    """``jax.grad`` of the reference's ``ssd_sequence`` (weighted sum of its
+    output and final state) against the port's, for every parameter and
+    the input."""
+    jparams, params, cfg = block
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(2, 19, cfg.d_model)).astype(np.float32)
+    gy = rng.normal(size=(2, 19, cfg.d_model)).astype(np.float32)
+    gh = rng.normal(size=(2, cfg.ssm_heads, cfg.ssm_head_dim,
+                          cfg.ssm_state)).astype(np.float32)
+
+    def jloss(pp, xx):
+        y, new = js.ssd_sequence(pp, xx, cfg)
+        return jnp.sum(y * gy) + jnp.sum(new["h"] * gh)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    tx = _t(x).requires_grad_()
+    y, new = ps.ssd_sequence(leaves, tx, cfg)
+    loss = (y * _t(gy)).sum() + (new["h"] * _t(gh)).sum()
+    got = dict(zip([*leaves, "x"],
+                   torch.autograd.grad(loss, [*leaves.values(), tx])))
+    want = dict(jg[0], x=jg[1])
+    assert set(got) == set(want)
+    for name in want:
+        assert _rel_l2(_np(got[name]), _np(want[name])) < GRAD_REL_L2, name
