@@ -11,8 +11,9 @@ imports nothing of JAX and nothing of the JAX package. Phases:
 2. building the kernels from ``src/repro_torch/kernels/*/csrc``, one
    ``nvcc`` for each source, all started together, and the swarm, K4, K5
    and K6 sources once more beside them under ``-Xptxas -v``: no K1, K2,
-   K4, K4b, K5 or K6 kernel may spill (K2's registers are logged with the grid
-   it chose, K6's with their shared memory);
+   K4, K4b, K5 or K6 kernel may spill, K4b's tensor-core dK/dV and dQ
+   kernels among them (K2's registers are logged with the grid it chose,
+   K6's with their shared memory);
 3. K1 (masked rarest-argmin) on the card against its plain PyTorch
    versions, index-exact, in both forms: the dense form (``(k, P)``
    candidates) at the fleet path's shape and on edge cases, and the
@@ -46,12 +47,17 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    Then K4b (its backward) against ``attention_bwd_ref`` at gemma2's
    training shape (B 4, Hq 8, Hkv 4, S 2048, d 256, causal, softcap 50)
    and recurrentgemma's (B 2, Hq 10, Hkv 1, S 4608, window 2048), in
-   float32 and bfloat16, per gradient in relative L2, two calls
-   bit-identical; in float32 with q scaled by 8 the controls (no softcap
-   derivative, delta zero) must fall outside; timed at gemma2's shape
-   beside the plain version, its bound (10 d a live pair at the float32
-   SIMT rate) and the backward of ``scaled_dot_product_attention``
-   (softcap 0);
+   float32 (the SIMT kernels) and bfloat16 (the tensor cores, P and dS
+   split in two bf16 terms), per gradient in relative L2, two calls
+   bit-identical, each launch's route as its dtype's; in float32 with q
+   scaled by 8 the controls (no softcap derivative, delta zero) must fall
+   outside, in bfloat16 the unsplit control (``attention_bwd_rounded_ref``
+   with bf16 P and dS), beside which the route's own arithmetic in plain
+   torch is logged; at gemma2's shape in bfloat16 the tensor-core route,
+   the SIMT kernels it replaced (which it must beat), the backward of
+   ``scaled_dot_product_attention`` (softcap 0) and the plain version
+   timed in turns, beside the bound (10 d a live pair at the bf16
+   tensor-core rate) and the route's executed TFLOP/s (20 d a pair);
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
    state (also through the public ``ops.ssd_mixer``) and a ragged
@@ -140,8 +146,10 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     last step in a directory under ``build/`` that is deleted after. K4's
     and K4b's launches, read from this run alone, must be 2 x 2 x 26 = 104
     and 2 x 26 = 52 a step (two forwards a layer and microbatch under
-    remat); every loss finite; seconds a step, tokens/s, K4b's share of a
-    step (CUDA events around its calls) and the peak memory logged. The
+    remat), every K4b launch on the tensor cores and none of the SIMT
+    backward it replaced; every loss finite; seconds a step, tokens/s,
+    K4b's share of a step (CUDA events around its calls) and the peak
+    memory logged. The
     checkpoint, restored into a fresh ``TrainState``, must equal the
     trained state leaf for leaf (save and load seconds and bytes logged);
     its parameters, loaded into a fresh serving model, must serve the
@@ -169,12 +177,13 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     repro_torch.launch.serve --ckpt-dir`` on its checkpoint, on the card
     at their reduced config, each printing its ``done step=`` or
     ``restored from`` line;
-17. K4's and K5's route checks: every bfloat16 launch of K4 and K5 in
-    the whole run must have taken the tensor-core route and every float32
-    launch the SIMT one, as the launch that ran reports its route (each
-    wrapper counts launches by dtype and route), and each path's launches
-    by route must add up to its count (K4b has one route, SIMT in both
-    dtypes);
+17. K4's, K4b's and K5's route checks: every bfloat16 launch of K4, K4b
+    and K5 in the whole run must have taken the tensor-core route and
+    every float32 launch the SIMT one, as the launch that ran reports its
+    route (each wrapper counts launches by dtype and route), and each
+    path's launches by route must add up to its count; the SIMT backward
+    that K4b's tensor-core route replaced must have no launch outside its
+    timing in phase 5;
 18. one JSON line of per-kernel numbers, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -217,6 +226,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 I32_OPS_PER_S = F32_OPS_PER_S / 2
+# the shared memory a block can take (dynamic, after the attribute is set)
+MAX_SHARED_BYTES = 232448
 SWARM_SOURCE = "src/repro_torch/kernels/swarm/csrc/swarm_kernels.cu"
 CHECKSUM_SOURCE = "src/repro_torch/kernels/checksum/csrc/checksum_kernels.cu"
 ATTENTION_SOURCE = (
@@ -261,7 +272,7 @@ K4_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # teacher-forced decode against the forward pass (4.5e-6 / 3.0e-4 with the
 # int8 KV cache).
 K4_REL_L2 = 3e-4
-# the kernel that K4 and K5 must launch for each dtype
+# the kernel that K4, K4b and K5 must launch for each dtype
 DTYPE_ROUTE = {"bfloat16": "tensor_core", "float32": "simt"}
 LOGITS_BAND_F32 = 5e-5
 LOGITS_BAND_BF16 = 8.5e-3
@@ -352,13 +363,19 @@ TRAIN_SERVE = (4, 256, 8)
 CRASH = dict(layers=4, batch=4, seq=512, steps=6, every=2, at=3)
 # K4b against its plain version: gemma2's training shape (b, hq, hkv, s, d;
 # causal, softcap 50) and recurrentgemma's (window 2048), relative L2 per
-# gradient: float32 about 8x the largest H100 reading (1.2e-6, q scaled
-# by 8; the controls read 0.25 and more there), bfloat16 about 7x its
-# (3.0e-5, the two sides' bf16 roundings of float32 values a few ulps
-# apart); both dtypes run the SIMT kernels
+# gradient: float32 (the SIMT kernels) about 8x the largest H100 reading
+# (1.2e-6, q scaled by 8; the controls read 0.25 and more there); bfloat16
+# set when both dtypes ran the SIMT kernels (3.0e-5 read), which the
+# tensor-core route (P and dS split in two bf16 terms, about 1e-4 in plain
+# torch, ``attention_bwd_rounded_ref``) must hold and the unsplit control
+# (bf16 P and dS, 2.5e-3) must miss
 K4B_CASES = [((4, 8, 4, 2048, 256), 0, 50.0), ((2, 10, 1, 4608, 256), 2048,
                                                 0.0)]
 K4B_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-4}
+# operations K4b's tensor-core route executes against its bound's 10 d a
+# live pair: S and dP in both kernels, and dV, dK and dQ on P or dS split in
+# two bf16 terms (20 d)
+K4B_EXECUTED = 2
 # float32 gradient checks at full width and reduced depth: the kernels
 # against their plain versions, one step, relative L2 per leaf, and the
 # controls that must fall outside each arch's band. gemma2's query
@@ -1223,7 +1240,7 @@ def by_route(counts) -> dict:
 
 
 def check_routes(kernel, counts, paths):
-    """Fail unless every launch of ``kernel`` (K4 or K5) in the run
+    """Fail unless every launch of ``kernel`` (K4, K4b or K5) in the run
     (``counts``, the wrapper's ``route_launches``) took the route of its
     dtype (``DTYPE_ROUTE``), as the launch that ran reported it, and each
     path's launches by route (``paths``: path -> ({"dtype/route": n},
@@ -1237,7 +1254,7 @@ def check_routes(kernel, counts, paths):
              f"must take {DTYPE_ROUTE})")
     for arch, (path_routes, launches) in paths.items():
         if sum(path_routes.values()) != launches:
-            fail(f"{kernel} on the {arch} serving path: {path_routes} by "
+            fail(f"{kernel} on the {arch} path: {path_routes} by "
                  f"route, {launches} launches")
     log(f"{kernel} launches by route: the whole run {routes}; paths "
         + json.dumps({arch: r for arch, (r, _) in paths.items()}))
@@ -1249,9 +1266,11 @@ def check_k4_ptxas(report: str, head_dims) -> tuple[dict, dict]:
     ``-Xptxas -v``'s ``report`` of the attention source, as ({"route d":
     [registers, spill bytes]}, {"kernel dtype d": [...]}) for the forward
     and the backward (the forward in two instances, the one training runs
-    writing lse); fails if any instance spills (the tensor-core kernel's
-    O accumulator alone is 128 registers a thread at d 256) or one is
-    missing."""
+    writing lse; the backward's SIMT kernels in both dtypes, the bfloat16
+    ones being the control that the tensor-core route replaced, and its
+    tensor-core dK/dV and dQ kernels, "tensor_core"); fails if any
+    instance spills (the tensor-core kernels' accumulators alone are 128
+    registers a thread at d 256) or one is missing."""
     routes = {"tc": "tensor_core", "simt": "simt"}
     dtypes = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
     fwd, bwd, row = {}, {}, None
@@ -1266,17 +1285,21 @@ def check_k4_ptxas(report: str, head_dims) -> tuple[dict, dict]:
                                 r"(f|13__nv_bfloat16)Li(\d+)E", line):
                 row = bwd[f"{m.group(1)} {dtypes[m.group(2)]} "
                           f"d{m.group(3)}"] = [0, 0]
+            elif m := re.search(r"3bwd2tc\d+(dkdv|dq)_kernelILi(\d+)E",
+                                line):
+                row = bwd[f"{m.group(1)} tensor_core d{m.group(2)}"] = [0, 0]
         elif row is not None and (m := re.search(r"Used (\d+) registers",
                                                  line)):
             row[0] = int(m.group(1))
         elif row is not None and (m := re.search(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             row[1] = int(m.group(1)) + int(m.group(2))
-    if len(fwd) != 4 * len(head_dims) or len(bwd) != 6 * len(head_dims):
+    if len(fwd) != 4 * len(head_dims) or len(bwd) != 8 * len(head_dims):
         fail(f"K4 -Xptxas -v: {sorted(fwd)} forward and {sorted(bwd)} "
              f"backward kernel instances; two a route and head dim "
-             f"{head_dims} (with and without lse), and three a dtype and "
-             f"head dim, expected:\n{report}")
+             f"{head_dims} (with and without lse), and for the backward "
+             f"three a dtype and head dim (SIMT) and two a head dim (tensor "
+             f"cores), expected:\n{report}")
     spills = {n: v[1] for n, v in {**fwd, **bwd}.items() if v[1]}
     if spills:
         fail(f"K4 -Xptxas -v: spilled bytes {spills}")
@@ -2618,8 +2641,7 @@ def k4b_bound(q, k, *, window):
     dk, dv written once; 10·d operations per live (q, k) pair and query
     head (q·k recomputed, dV, dP, dQ, dK) at the card's peak for the
     operands' type (bf16 on the tensor cores, float32 outside them).
-    Returns (ms, bound_by, operations, the same bound at the float32 SIMT
-    rate that today's kernel runs at)."""
+    Returns (ms, bound_by, operations)."""
     import torch
 
     b, hq, s, d = q.shape
@@ -2628,7 +2650,19 @@ def k4b_bound(q, k, *, window):
     flops = 10 * b * hq * d * live_pairs(s, s, True, window)
     peak = (BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16
             else F32_OPS_PER_S)
-    return (*bound(nbytes, flops, peak), flops, bound(nbytes, flops)[0])
+    return (*bound(nbytes, flops, peak), flops)
+
+
+def in_turns(fns: dict, reps: int, rounds: int = 2) -> tuple[dict, dict]:
+    """Each of ``fns`` (name -> callable) timed by ``median_ms`` in turns,
+    the order reversed every round (a b c, c b a, ...); returns ({name:
+    the median of its rounds' medians}, {name: each round's median})."""
+    times = {n: [] for n in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for n in order if r % 2 == 0 else order[::-1]:
+            times[n].append(median_ms(fns[n], reps=reps))
+    return {n: statistics.median(t) for n, t in times.items()}, times
 
 
 def attention_bwd_faulty(q, k, v, out, dout, lse, *, fault, **kw):
@@ -2668,17 +2702,27 @@ def check_k4b(k4, dev):
     """K4b against its plain version on the card at gemma2's training
     shape (causal, softcap 50) and recurrentgemma's (one key/value head,
     window 2048), in float32 and bfloat16, within ``K4B_REL_L2`` per
-    gradient, and bit-identical from one call to the next; in float32,
-    with q scaled so that the scores reach the softcap's bend, the
-    controls of ``attention_bwd_faulty`` must fall outside. Times it at
-    gemma2's shape beside the plain version, the bound and
-    ``torch.autograd.grad`` through ``scaled_dot_product_attention``
-    (softcap 0), backward only; returns the kernel's record."""
+    gradient, bit-identical from one call to the next, each launch on its
+    dtype's route (``DTYPE_ROUTE``); the controls must fall outside: in
+    float32, with q scaled so that the scores reach the softcap's bend,
+    those of ``attention_bwd_faulty``; in bfloat16 the unsplit control
+    (``attention_bwd_rounded_ref`` with bf16 P and dS), beside which the
+    route's own arithmetic in plain torch (two terms) is logged. At
+    gemma2's shape in bfloat16 it times, in turns, the tensor-core route,
+    the SIMT kernels it replaced (``flash_attention_bwd_replaced_cuda``,
+    which it must beat), ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` (softcap 0, backward only) and the
+    plain version; returns the kernel's record."""
     import torch
     import torch.nn.functional as F
 
+    smem = {d: k4.kernel.bwd_shared_memory(d) for d in k4.kernel.HEAD_DIMS}
+    log("K4b's tensor-core kernels, dynamic shared memory a CTA (bytes): "
+        + json.dumps(smem))
+    if any(n > MAX_SHARED_BYTES for by in smem.values() for n in by.values()):
+        fail(f"K4b: shared memory above {MAX_SHARED_BYTES} bytes: {smem}")
     gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
-    worst, worst_abs = {}, 0.0
+    worst, worst_abs, routes, readings = {}, 0.0, {}, {}
     for (b, hq, hkv, s, d), window, cap in K4B_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype)[6:]
@@ -2693,13 +2737,20 @@ def check_k4b(k4, dev):
                 kw = dict(causal=True, window=window, softcap=cap)
                 out, lse = k4.flash_attention_cuda(q, k, v, return_lse=True,
                                                    **kw)
+                before = collections.Counter(
+                    k4.flash_attention_bwd_cuda.route_launches)
                 got = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
                 again = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse,
                                                     **kw)
+                route = by_route(collections.Counter(
+                    k4.flash_attention_bwd_cuda.route_launches) - before)
                 want = k4.attention_bwd_ref(q, k, v, out, do, lse, **kw)
                 torch.cuda.synchronize()
                 what = (f"K4b {dt} q {(b, hq, s, d)} k/v {(b, hkv, s, d)} "
                         f"window {window} softcap {cap} q x {q_scale}")
+                if route != {f"{dt}/{DTYPE_ROUTE[dt]}": 2}:
+                    fail(f"{what}: two calls launched {route}")
+                routes[what] = route
                 if not all(torch.equal(x, y) for x, y in zip(got, again)):
                     fail(f"{what}: two calls differ")
                 rels = [rel_l2(x, y) for x, y in zip(got, want)]
@@ -2708,7 +2759,8 @@ def check_k4b(k4, dev):
                 worst_abs = max(worst_abs, *(
                     float((x.float() - y.float()).abs().max())
                     for x, y in zip(got, want)))
-                controls = {}
+                del got, again
+                controls, witness = {}, {}
                 if dtype == torch.float32:
                     for fault in ("no softcap derivative", "delta zero"):
                         if fault == "no softcap derivative" and not cap:
@@ -2718,18 +2770,31 @@ def check_k4b(k4, dev):
                         controls[fault] = max(rel_l2(x, y)
                                               for x, y in zip(bad, want))
                         del bad
-                log(f"{what}: relative L2 dq {rels[0]:.3g}, dk {rels[1]:.3g},"
-                    f" dv {rels[2]:.3g} (band {band:.3g}); bit-identical "
-                    f"twice; controls " + json.dumps(
-                        {n: float(f"{c:.4g}") for n, c in controls.items()}))
+                else:
+                    for terms, into in ((1, controls), (2, witness)):
+                        emulated = k4.attention_bwd_rounded_ref(
+                            q, k, v, out, do, lse, terms=terms, **kw)
+                        into[f"{terms}-term P and dS in plain torch"] = [
+                            rel_l2(x, y) for x, y in zip(emulated, want)]
+                        del emulated
+                    controls = {n: max(r) for n, r in controls.items()}
+                readings[what] = {"rel_l2": rels, "controls": controls,
+                                  "witness": witness}
+                log(f"{what}: {route}; relative L2 dq {rels[0]:.3g}, dk "
+                    f"{rels[1]:.3g}, dv {rels[2]:.3g} (band {band:.3g}); "
+                    f"bit-identical twice; controls " + json.dumps(
+                        {n: float(f"{c:.4g}") for n, c in controls.items()})
+                    + ("; the route's arithmetic " + json.dumps(
+                        {n: [float(f"{x:.4g}") for x in r]
+                         for n, r in witness.items()}) if witness else ""))
                 if max(rels) > band:
                     fail(f"{what}: relative L2 {rels} above {band}")
-                if q_scale > 1.0:
+                if q_scale > 1.0 or dtype == torch.bfloat16:
                     for name, c in controls.items():
                         if c <= band:
                             fail(f"{what}: the control '{name}' ({c}) is "
                                  f"inside the band {band}")
-                del q, k, v, do, out, lse, got, again, want
+                del q, k, v, do, out, lse, want
                 torch.cuda.empty_cache()
 
     (b, hq, hkv, s, d), window, cap = K4B_CASES[0]
@@ -2739,26 +2804,39 @@ def check_k4b(k4, dev):
                                  (b, hq, s, d)))
     kw = dict(causal=True, window=window, softcap=cap)
     out, lse = k4.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    ms = median_ms(lambda: k4.flash_attention_bwd_cuda(q, k, v, out, do, lse,
-                                                       **kw), reps=10)
-    plain_ms = median_ms(lambda: k4.attention_bwd_ref(q, k, v, out, do, lse,
-                                                      **kw), reps=3)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (
         q, k.repeat_interleave(hq // hkv, dim=1),
         v.repeat_interleave(hq // hkv, dim=1)))
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    library_ms = median_ms(lambda: torch.autograd.grad(
-        lib_out, (qs, ks, vs), do, retain_graph=True), reps=10)
-    bound_ms, bound_by, flops, simt_bound_ms = k4b_bound(q, k, window=window)
+    replaced = k4.flash_attention_bwd_replaced_cuda
+    times, rounds = in_turns({
+        "tensor_core": lambda: k4.flash_attention_bwd_cuda(
+            q, k, v, out, do, lse, **kw),
+        "replaced_simt": lambda: replaced(q, k, v, out, do, lse, **kw),
+        "library": lambda: torch.autograd.grad(
+            lib_out, (qs, ks, vs), do, retain_graph=True),
+        "plain": lambda: k4.attention_bwd_ref(q, k, v, out, do, lse, **kw),
+    }, reps=5)
+    replaced.launches = 0  # timing launches only; no path may launch it
+    ms, plain_ms = times["tensor_core"], times["plain"]
+    bound_ms, bound_by, flops = k4b_bound(q, k, window=window)
+    executed = K4B_EXECUTED * flops
     log(f"K4b at gemma2's training shape {(b, hq, hkv, s, d)} bf16 softcap "
-        f"{cap}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{cap}, timed in turns (each round's median "
+        + json.dumps({n: [round(t, 4) for t in r] for n, r in rounds.items()})
+        + f"): tensor cores {ms:.3f} ms, the replaced SIMT kernels "
+        f"{times['replaced_simt']:.3f} ms "
+        f"({times['replaced_simt'] / ms:.2f}x), plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention backward (softcap 0) "
-        f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-        f"{flops / 1e9:.1f} GFLOP at the bf16 tensor-core rate, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
-        f"{100 * bound_ms / ms:.2f} % of the bound; at the float32 SIMT "
-        f"rate of today's route {simt_bound_ms:.3f} ms, "
-        f"{100 * simt_bound_ms / ms:.1f} %)")
+        f"{times['library']:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP at the bf16 tensor-core rate), "
+        f"{100 * bound_ms / ms:.2f} % of the bound; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the bound's work, "
+        f"{executed / ms / 1e9:.1f} TFLOP/s executed ({executed / 1e9:.1f} "
+        f"GFLOP: 20 d a live pair)")
+    if ms >= times["replaced_simt"]:
+        fail(f"K4b: the tensor-core route ({ms} ms) is no faster than the "
+             f"SIMT kernels it replaced ({times['replaced_simt']} ms)")
     del q, k, v, do, out, lse, qs, ks, vs, lib_out
     torch.cuda.empty_cache()
     return {
@@ -2774,17 +2852,22 @@ def check_k4b(k4, dev):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": times["library"],
         "library": "torch.autograd.grad through "
                    "scaled_dot_product_attention(is_causal=True), softcap 0, "
                    "backward only",
+        "replaced_simt_ms": times["replaced_simt"],
+        "times_in_turns": rounds,
         "bound_share": bound_ms / ms,
-        "simt_bound_ms": simt_bound_ms,
         "tflops": flops / ms / 1e9,
+        "executed_tflops": executed / ms / 1e9,
         "gflop": flops / 1e9,
         "shape": [b, hq, hkv, s, d],
         "dtype": "bfloat16",
         "softcap": cap,
+        "routes_by_case": routes,
+        "readings": readings,
+        "shared_memory": smem,
     }
 
 
@@ -3187,8 +3270,11 @@ def run_training_path(counters, device=None, cfg=None, batch=None, seq=None,
                   if m.startswith("[trainer] step")]
         attn_layers = sum(k in ("attn", "local_attn")
                           for k in layer_kinds(cfg))
+        # the SIMT kernels that K4b's tensor-core route replaced: no path
+        # reaches them
         want = {"flash_attention": 2 * steps * tcfg.microbatches * attn_layers,
-                "flash_attention_bwd": steps * tcfg.microbatches * attn_layers}
+                "flash_attention_bwd": steps * tcfg.microbatches * attn_layers,
+                "flash_attention_bwd_replaced": 0}
         tokens = batch * seq
         step_s = clock.seconds
         steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
@@ -3209,7 +3295,8 @@ def run_training_path(counters, device=None, cfg=None, batch=None, seq=None,
                  f"losses {losses} (finite and falling wanted)")
         if launches != want:
             fail(f"training path: launches {launches}, not {want} (2 K4 "
-                 "forwards a layer a microbatch under remat, one K4b)")
+                 "forwards a layer a microbatch under remat, one K4b, none "
+                 "of the replaced SIMT backward)")
         for name, r in routes.items():
             wrong = {k: n for k, n in r.items()
                      if DTYPE_ROUTE.get(k.split("/")[0]) != k.split("/")[1]}
@@ -3505,8 +3592,10 @@ def main() -> int:
         paths[arch] = outcome["launches"]
         routes[arch] = outcome["routes"]
     torch.cuda.empty_cache()
-    train_counters = {"flash_attention": k4.flash_attention_cuda,
-                      "flash_attention_bwd": k4.flash_attention_bwd_cuda}
+    train_counters = {
+        "flash_attention": k4.flash_attention_cuda,
+        "flash_attention_bwd": k4.flash_attention_bwd_cuda,
+        "flash_attention_bwd_replaced": k4.flash_attention_bwd_replaced_cuda}
     with phase(f"training path {TRAIN_ARCH} with its checkpoint"):
         training = run_training_path(train_counters)
     log("training path outcome: " + json.dumps(training))
@@ -3542,6 +3631,14 @@ def main() -> int:
         record["routes"] = check_routes(
             "K4" if record is k4_record else "K5", wrapper.route_launches,
             by_path)
+    k4b_record["routes"] = check_routes(
+        "K4b", k4.flash_attention_bwd_cuda.route_launches,
+        {train_path: (training["routes"]["flash_attention_bwd"],
+                      training["launches"]["flash_attention_bwd"])})
+    if k4.flash_attention_bwd_replaced_cuda.launches:
+        fail(f"the SIMT backward that K4b's tensor-core route replaced was "
+             f"launched {k4.flash_attention_bwd_replaced_cuda.launches} "
+             f"times outside its timing")
     log(smi)  # again, so that the end of a long log names the card too
     log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k4b_record,
                                 k5_record, k6_record]}))

@@ -716,23 +716,81 @@ int launch_d(int d, int dtype, const void* q, const void* k, const void* v,
 //   times 1 - tanh(u / c)^2 with a softcap c, masked to 0;
 // - dV = P^T dO, dK = dS^T (q / sqrt(d)), dQ = dS K / sqrt(d); the key and
 //   value gradients of a GQA group sum over its query heads.
-// Both dtypes run the same SIMT kernels: tiles in shared memory as float32,
-// products with fmaf in float32, outputs rounded once to the input's dtype.
+// Three launches a call: the delta pre-pass, then a dK/dV kernel (one CTA a
+// kv tile, looping over the query heads of its group and the query tiles
+// that see it) and a dQ kernel (one CTA a q tile, looping over the live kv
+// tiles). Each output tile has one owner and every sum one order: no
+// atomics, so two calls give the same bits. Outputs are rounded once to
+// the input's dtype. Two routes, chosen by dtype in attn_bwd_launch:
 //
-// The bound is operations: 10 d a live (q, k) pair (recompute q k, dV, dP,
-// dQ, dK); these kernels execute 14 d (the scores and dP twice, once in
-// each kernel), so the SIMT peak caps them at 10/14 of it. The design is
-// the simple one and deterministic: no atomics, so two runs are
-// bit-identical.
-// - dkdv_kernel: one CTA a (kv tile, kv head, batch) holds its K and V
-//   tiles and loops over the query heads of the group and the query tiles
-//   that see the tile (causal and window ranges solved), recomputing P and
-//   dS for each and adding P^T dO and dS^T Q into registers;
-// - dq_kernel: one CTA a (q tile, head, batch) holds its Q and dO tiles
-//   and loops over the live kv tiles, adding dS K into registers.
+// bfloat16: tensor cores (namespace bwd::tc). The bound is operations: 10
+// d a live (q, k) pair (q k recomputed, dP, dV, dK, dQ), at gemma2's
+// training shape (B 4, Hq 8, Hkv 4, S 2048, d 256, causal) 171.9 GFLOP,
+// 0.174 ms at 989 TFLOP/s. The route executes 20 d a pair: S and dP are
+// computed in both kernels (2 d each, twice), and dV, dK and dQ take P or
+// dS split in two bf16 terms (4 d each). What it does about the limits of
+// the SIMT design that bf16 ran before:
+// - All five products are mma.sync m16n8k16 bf16 with float32
+//   accumulators. Q, K, V and dO are exact bf16 operands; S = Q K^T and
+//   dP = dO V^T take them unsplit, and 1/sqrt(d) scales the float32
+//   accumulators (it is no power of two at d 32 or 128). P and dS are
+//   float32 and go in as hi = bf16(x) and lo = bf16(x - hi), both on the
+//   same B fragment into the same accumulator, so the three gradient
+//   products keep about 16 bits of them (bf16 P and dS miss the bfloat16
+//   band by an order of magnitude; kernels/attention/ref.py
+//   attention_bwd_rounded_ref states this arithmetic in plain torch).
+// - Operands stayed float32 in shared memory: they stay bf16, rows padded
+//   by 16 bytes so that the eight rows an ldmatrix reads fall on distinct
+//   banks, as in the forward.
+// - No copy overlapped compute: the streamed side comes in through
+//   cp.async.cg in a two-stage ring (tile i + 1 loads while tile i
+//   multiplies), rows past the end zero-filled by the copy.
+// - dkdv_kernel: a CTA of 8 warps owns kBK keys (K and V resident) and
+//   streams kBQ = 64-row tiles of Q and dO with their lse and delta rows.
+//   The warps form kKG groups of 16 keys, and each group's dK and dV are
+//   split along d over kDS warps: from d 32 up, 2 groups of 4 warps (32
+//   keys a CTA, a quarter of d a warp: 64 columns of each, 128 registers
+//   of accumulators at d 256). For S^T = K Q^T and dP^T = V dO^T a warp
+//   takes its 16 keys and its share of the tile's query rows; P^T and
+//   dS^T, split, go through shared memory (four bf16 terms of kBK x 72)
+//   so that every warp reads all 64 query rows of its keys as the A
+//   operand of dV += P^T dO and dK += dS^T Q (dO and Q by ldmatrix
+//   .trans). dK and dV are summed in two levels: each tile's products
+//   from zero on the tensor cores (8 mma deep), the tiles' sums added in
+//   float32 registers. One accumulator over the whole loop (up to 2,560
+//   mma deep at recurrentgemma's shape: 10 heads x 2,048 queries) read
+//   2.5e-4-5.1e-4 from the plain version on an H100 against about 1e-4
+//   for the split alone: the tensor cores' float32 accumulation loses
+//   bits as the chain grows. 188,416 bytes of shared memory at d 256.
+// - dq_kernel: a CTA of 8 warps owns kQT = 128 query rows (Q and dO
+//   resident), 16 a warp, and streams kKT = 32-key tiles of K and V, 16
+//   keys a step at d 256 (32 spill). S and dP stay in registers and dS,
+//   split, is repacked from the accumulator fragments into the A operand
+//   of dQ += dS K (K by ldmatrix .trans), as the forward's P V. dQ's 128
+//   accumulator registers a thread at d 256 leave no room for a second
+//   level: it accumulates on the tensor cores over all live keys (256 mma
+//   deep at 2,048 keys; 1.2e-4-1.3e-4 read on an H100 at chip_smoke.py's
+//   K4B_CASES shapes).
+//   202,752 bytes at d 256.
+// - The masks run only on tiles that straddle an edge for a warp's rows
+//   and keys; expf and tanhf stay the accurate library functions (no
+//   --use_fast_math), s / softcap taken as s * (1 / softcap) as in the
+//   forward. A query row with no live key gets P = 0 here and in the
+//   SIMT kernels, where the reference's exp(-2e38 - lse) reads 1 (no path
+//   has such a row: causal self-attention sees its own key).
+// What still holds it back: the two kernels recompute S and dP (4 d of
+// the 20 d executed); every warp reads its operands through ldmatrix from
+// shared memory, one CTA an SM, and mma.sync issues 16 x 8 x 16 at a
+// time. Fusing dQ into the dK/dV pass, wgmma and TMA are later work.
+//
+// float32: SIMT (namespace bwd), for the float32 contract of 1e-5, which
+// TF32 would break: tiles in shared memory as float32, products with fmaf.
 // Tiles are square, kT rows (64, or 32 at d 256 to keep the accumulators
 // in registers); 256 threads a CTA; one CTA an SM (up to 169 KB of shared
-// memory). Tensor cores, wgmma and TMA are later work.
+// memory). The same kernels in bfloat16 (operands widened to float32) are
+// the design the tensor-core route replaced, kept callable through
+// attn_bwd_replaced_launch as a control that chip_smoke.py times beside
+// it; no path reaches them.
 
 namespace bwd {
 
@@ -1152,6 +1210,631 @@ int launch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// ------------------------------------------------------------------ bwd::tc
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using ::tc::copy_tile;
+using ::tc::cp_async_commit;
+using ::tc::cp_async_wait;
+using ::tc::ldmatrix_x4;
+using ::tc::ldmatrix_x4_trans;
+using ::tc::mma;
+using ::tc::smem_addr;
+using ::tc::split;
+static_assert(kThreads == ::tc::kThreads, "copy_tile strides by this block");
+
+constexpr int kBQ = 64;           // query rows a streamed dK/dV tile
+constexpr int kQT = 16 * kWarps;  // query rows a dQ CTA: 16 a warp
+constexpr int kKT = 32;           // keys a streamed dQ tile
+constexpr int kStages = 2;        // streamed tiles in flight
+
+template <int D>
+struct Layout {
+  // dK/dV: kKG groups of 16 keys, each group's dK and dV split along d
+  // over kDS warps (a quarter of d each from d 32 up); a warp's S^T and
+  // dP^T take kQW query rows of a tile
+  static constexpr int kDS = D / 8 < 4 ? D / 8 : 4;
+  static constexpr int kKG = kWarps / kDS;
+  static constexpr int kBK = 16 * kKG;   // keys a dK/dV CTA
+  static constexpr int kDW = D / kDS;    // d columns of dK and dV a warp
+  static constexpr int kQW = kBQ / kDS;
+  // dQ: keys a softmax step (16 at d 256, where 32 spill)
+  static constexpr int kSub = D >= 256 ? 16 : 32;
+  static constexpr int kRow = D + 8;     // bf16 a Q, K, V or dO row
+  static constexpr int kPRow = kBQ + 8;  // bf16 a staged P^T or dS^T row
+  // dK/dV: K and V; stages of Q, dO, lse and delta; P^T hi, P^T lo, dS^T
+  // hi and dS^T lo
+  static constexpr uint32_t kKBytes = kBK * kRow * 2;
+  static constexpr uint32_t kQBytes = kBQ * kRow * 2;
+  static constexpr uint32_t kStage = 2 * kQBytes + 2 * kBQ * 4;
+  static constexpr uint32_t kPBytes = kBK * kPRow * 2;
+  static constexpr size_t kDkdvBytes =
+      2 * kKBytes + kStages * kStage + 4 * kPBytes;
+  // dQ: Q and dO; stages of K and V
+  static constexpr uint32_t kQTBytes = kQT * kRow * 2;
+  static constexpr uint32_t kKTBytes = kKT * kRow * 2;
+  static constexpr size_t kDqBytes = 2 * kQTBytes + kStages * 2 * kKTBytes;
+};
+static_assert(Layout<256>::kDkdvBytes <= 232448 &&
+                  Layout<256>::kDqBytes <= 232448,
+              "inside a block's shared memory");
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// lse and delta of kBQ query rows into shared memory (lse, then delta),
+// 4 bytes a copy; rows at or past `avail` are zero-filled
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* lse,
+                                          const float* delta, int avail) {
+  const int t = threadIdx.x;
+  if (t < 2 * kBQ) {
+    const int r = t % kBQ;
+    const bool ok = r < avail;
+    const float* g = (t < kBQ ? lse : delta) + (ok ? r : 0);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     dst + 4 * t),
+                 "l"(g), "r"(ok ? 4 : 0));
+  }
+}
+
+// P and dS of one score from its float32 accumulators s (q k) and dp (dO
+// v): scale, softcap, mask (ok), then exp against the row's lse and the
+// softcap's derivative; P returned through s, dS through dp
+__device__ __forceinline__ void probs(float& s, float& dp, bool ok,
+                                      float row_lse, float row_delta,
+                                      float scale, float softcap,
+                                      float inv_cap) {
+  float x = s * scale, cd = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(x * inv_cap);
+    x = softcap * t;
+    cd = 1.f - t * t;
+  }
+  const float p = ok ? expf(x - row_lse) : 0.f;
+  s = p;
+  dp = ok ? p * (dp - row_delta) * cd : 0.f;
+}
+
+__device__ __forceinline__ bool live(int qi, int ki, int sq, int skv,
+                                     int causal, int window) {
+  bool ok = qi < sq && ki < skv;
+  if (causal) ok = ok && qi >= ki;
+  if (window > 0) ok = ok && qi - ki < window;
+  return ok;
+}
+
+// One CTA per (kv head, batch, kv tile), kv heads fastest, then batches,
+// then kv tiles from the first (the most live query tiles when causal).
+// In the mma layouts lane t holds rows t / 4 and t / 4 + 8 and columns
+// 2 (t % 4) and 2 (t % 4) + 1 of each 8-wide n-tile; S^T and dP^T have the
+// warp's keys as rows and the tile's queries as columns.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, Operands st, int b, int hq, int hkv,
+                int sq, int skv, int causal, int window, float softcap,
+                float scale) {
+  using L = Layout<D>;
+  constexpr int kBK = L::kBK, kQW = L::kQW, kDW = L::kDW;
+  constexpr int kN = kDW / 8;  // n-tiles of the warp's dK and dV
+  extern __shared__ uint4 smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const uint32_t k_smem = smem_addr(smem);
+  const uint32_t v_smem = k_smem + L::kKBytes;
+  const uint32_t ring = v_smem + L::kKBytes;
+  const uint32_t p_off = 2 * L::kKBytes + kStages * L::kStage;
+  const uint32_t p_smem = k_smem + p_off;
+
+  int idx = blockIdx.x;
+  const int hk = idx % hkv;
+  idx /= hkv;
+  const int bi = idx % b;
+  const int k_lo = idx / b * kBK;
+  const int group = hq / hkv;
+
+  // the query tiles that see a key of this tile, for each head of the group
+  const int q_begin = causal ? k_lo : 0;
+  int q_end = sq;
+  if (window > 0) {
+    const long long last = static_cast<long long>(k_lo) + kBK - 1 + window;
+    if (last < q_end) q_end = static_cast<int>(last);
+  }
+  const int it_begin = q_begin / kBQ;
+  const int n_it = q_begin < q_end ? (q_end + kBQ - 1) / kBQ - it_begin : 0;
+  const int n_tiles = group * n_it;
+
+  // local tile i: head hk group + i / n_it, query tile it_begin + i % n_it,
+  // in stage i % kStages
+  auto load_q = [&](int i) {
+    if (i < n_tiles) {
+      const int h = hk * group + i / n_it;
+      const int q_lo = (it_begin + i % n_it) * kBQ;
+      const uint32_t stage = ring + (i % kStages) * L::kStage;
+      copy_tile<D, kBQ>(stage, q + bi * st.q.b + h * st.q.h + q_lo * st.q.s,
+                        st.q.s, sq - q_lo);
+      copy_tile<D, kBQ>(stage + L::kQBytes,
+                        dout + bi * st.dout.b + h * st.dout.h +
+                            q_lo * st.dout.s,
+                        st.dout.s, sq - q_lo);
+      const long long row = (static_cast<long long>(bi) * hq + h) * sq + q_lo;
+      copy_rows(stage + 2 * L::kQBytes, lse + row, delta + row, sq - q_lo);
+    }
+  };
+  // group 0: K, V and tile 0; group 1: tile 1 (maybe empty)
+  copy_tile<D, kBK>(k_smem, k + bi * st.k.b + hk * st.k.h + k_lo * st.k.s,
+                    st.k.s, skv - k_lo);
+  copy_tile<D, kBK>(v_smem, v + bi * st.v.b + hk * st.v.h + k_lo * st.v.s,
+                    st.v.s, skv - k_lo);
+  load_q(0);
+  cp_async_commit();
+  load_q(1);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kg = warp % L::kKG, ds = warp / L::kKG;
+  const int kw_lo = k_lo + 16 * kg;    // the warp's first key
+  const int key0 = kw_lo + lane / 4;   // this lane's keys: key0, key0 + 8
+  const int col0 = 2 * (lane % 4);     // and its first column in an n-tile
+  // ldmatrix row addresses. K, V (A of S^T, dP^T, x4): keys lane % 16, d
+  // 8 (lane / 16). Q, dO (B of two query n-tiles, x4): query rows kQW ds
+  // + lane % 8 + 8 (lane / 16), d 8 ((lane / 8) % 2). Staged P^T, dS^T (A
+  // of dV, dK, x4): keys lane % 16, query rows 8 (lane / 16). dO, Q (B of
+  // two d n-tiles, x4.trans): query rows lane % 16, d kDW ds + 8 (lane /
+  // 16).
+  const uint32_t kv_frag =
+      ((16 * kg + lane % 16) * L::kRow + 8 * (lane / 16)) * 2;
+  const uint32_t qb_frag =
+      ((kQW * ds + lane % 8 + 8 * (lane / 16)) * L::kRow +
+       8 * ((lane / 8) % 2)) * 2;
+  const uint32_t pa_frag =
+      p_smem + ((16 * kg + lane % 16) * L::kPRow + 8 * (lane / 16)) * 2;
+  const uint32_t qt_frag =
+      ((lane % 16) * L::kRow + kDW * ds + 8 * (lane / 16)) * 2;
+
+  // dK and dV in two levels: each tile's products accumulate on the tensor
+  // cores from zero (8 mma deep), and the tile's sums are added here in
+  // float32, rounded to nearest (one accumulator over the whole loop
+  // misses the bfloat16 band: the header above).
+  float tdk[kN][4], tdv[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tdk[n][e] = tdv[n][e] = 0.f;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 1>();  // tile i (and K, V) have landed
+    __syncthreads();
+    const int q_lo = (it_begin + i % n_it) * kBQ;
+    const uint32_t qs = ring + (i % kStages) * L::kStage;
+    const uint32_t dos = qs + L::kQBytes;
+    const float* rows = reinterpret_cast<const float*>(
+        base + (qs - k_smem) + 2 * L::kQBytes);  // lse, then delta
+
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x kQW query rows
+    float s[kQW / 8][4], dp[kQW / 8][4];
+#pragma unroll
+    for (int n = 0; n < kQW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t a[4];
+      ldmatrix_x4(a, k_smem + kv_frag + kd * 32);
+#pragma unroll
+      for (int np = 0; np < kQW / 16; ++np) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, qs + qb_frag + (np * 16 * L::kRow + kd * 16) * 2);
+        mma(s[2 * np], a, bq[0], bq[1]);
+        mma(s[2 * np + 1], a, bq[2], bq[3]);
+      }
+      ldmatrix_x4(a, v_smem + kv_frag + kd * 32);
+#pragma unroll
+      for (int np = 0; np < kQW / 16; ++np) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, dos + qb_frag + (np * 16 * L::kRow + kd * 16) * 2);
+        mma(dp[2 * np], a, bq[0], bq[1]);
+        mma(dp[2 * np + 1], a, bq[2], bq[3]);
+      }
+    }
+    const int qw_lo = q_lo + kQW * ds;
+    const bool edge = kw_lo + 16 > skv || qw_lo + kQW > sq ||
+                      (causal && kw_lo + 15 > qw_lo) ||
+                      (window > 0 && qw_lo + kQW - 1 - kw_lo >= window);
+#pragma unroll
+    for (int n = 0; n < kQW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = kQW * ds + 8 * n + col0 + e % 2;  // row in the tile
+        const bool ok = !edge || live(q_lo + qc, key0 + 8 * (e / 2), sq, skv,
+                                      causal, window);
+        probs(s[n][e], dp[n][e], ok, rows[qc], rows[kBQ + qc], scale,
+              softcap, inv_cap);
+      }
+    // P^T and dS^T, each as two bf16 terms, to shared memory
+#pragma unroll
+    for (int n = 0; n < kQW / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t* at = reinterpret_cast<uint32_t*>(
+            base + p_off +
+            ((16 * kg + lane / 4 + 8 * r) * L::kPRow + kQW * ds + 8 * n +
+             col0) * 2);
+        constexpr int kTerm = L::kPBytes / 4;  // words between terms
+        split(s[n][2 * r], s[n][2 * r + 1], at[0], at[kTerm]);
+        split(dp[n][2 * r], dp[n][2 * r + 1], at[2 * kTerm], at[3 * kTerm]);
+      }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q, 16 query rows a step, on the warp's d
+    float adk[kN][4], adv[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < kBQ / 16; ++kq) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      const uint32_t pa = pa_frag + kq * 32;
+      ldmatrix_x4(ph, pa);
+      ldmatrix_x4(pl, pa + L::kPBytes);
+      ldmatrix_x4(sh, pa + 2 * L::kPBytes);
+      ldmatrix_x4(sl, pa + 3 * L::kPBytes);
+      const uint32_t at = qt_frag + kq * 16 * L::kRow * 2;
+#pragma unroll
+      for (int np = 0; np < kN / 2; ++np) {
+        uint32_t bt[4];
+        ldmatrix_x4_trans(bt, dos + at + np * 32);
+        mma(adv[2 * np], ph, bt[0], bt[1]);
+        mma(adv[2 * np], pl, bt[0], bt[1]);
+        mma(adv[2 * np + 1], ph, bt[2], bt[3]);
+        mma(adv[2 * np + 1], pl, bt[2], bt[3]);
+        ldmatrix_x4_trans(bt, qs + at + np * 32);
+        mma(adk[2 * np], sh, bt[0], bt[1]);
+        mma(adk[2 * np], sl, bt[0], bt[1]);
+        mma(adk[2 * np + 1], sh, bt[2], bt[3]);
+        mma(adk[2 * np + 1], sl, bt[2], bt[3]);
+      }
+      if constexpr (kN % 2 == 1) {  // d 16: one n-tile a warp
+        uint32_t bt[2];
+        ldmatrix_x2_trans(bt, dos + at + (kN - 1) * 16);
+        mma(adv[kN - 1], ph, bt[0], bt[1]);
+        mma(adv[kN - 1], pl, bt[0], bt[1]);
+        ldmatrix_x2_trans(bt, qs + at + (kN - 1) * 16);
+        mma(adk[kN - 1], sh, bt[0], bt[1]);
+        mma(adk[kN - 1], sl, bt[0], bt[1]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tdk[n][e] += adk[n][e];
+        tdv[n][e] += adv[n][e];
+      }
+    __syncthreads();  // this stage and the staged terms are no longer read
+    load_q(i + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= skv) continue;
+    bf16* krow = dk + bi * st.dk.b + hk * st.dk.h + key * st.dk.s +
+                 kDW * ds + col0;
+    bf16* vrow = dv + bi * st.dv.b + hk * st.dv.h + key * st.dv.s +
+                 kDW * ds + col0;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n) =
+          __floats2bfloat162_rn(tdk[n][2 * r] * scale,
+                                tdk[n][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * n) =
+          __floats2bfloat162_rn(tdv[n][2 * r], tdv[n][2 * r + 1]);
+    }
+  }
+}
+
+// One CTA per (head, batch, q tile), heads fastest, then batches, then q
+// tiles from the last (the most live kv tiles when causal). Warp w owns
+// query rows [16 w, 16 w + 16) of the tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, Operands st, int b, int hq, int hkv,
+              int sq, int skv, int causal, int window, float softcap,
+              float scale) {
+  using L = Layout<D>;
+  constexpr int kSub = L::kSub;
+  extern __shared__ uint4 smem[];
+  const uint32_t q_smem = smem_addr(smem);
+  const uint32_t do_smem = q_smem + L::kQTBytes;
+  const uint32_t kv_ring = do_smem + L::kQTBytes;  // a stage: K, then V
+
+  const int nq = (sq + kQT - 1) / kQT;
+  int idx = blockIdx.x;
+  const int h = idx % hq;
+  idx /= hq;
+  const int bi = idx % b;
+  const int q_lo = (nq - 1 - idx / b) * kQT;
+  const int hk = h / (hq / hkv);
+
+  // the live kv range of this q tile (as the forward)
+  int k_end = skv;
+  if (causal && q_lo + kQT < k_end) k_end = q_lo + kQT;
+  const int k_begin =
+      window > 0 && q_lo - window + 1 > 0 ? q_lo - window + 1 : 0;
+  const int j_begin = k_begin / kKT;
+  const int n_tiles = max(0, (k_end + kKT - 1) / kKT - j_begin);
+
+  const bf16* kp = k + bi * st.k.b + hk * st.k.h;
+  const bf16* vp = v + bi * st.v.b + hk * st.v.h;
+  auto load_kv = [&](int i) {
+    if (i < n_tiles) {
+      const int k_lo = (j_begin + i) * kKT;
+      const uint32_t stage = kv_ring + (i % kStages) * 2 * L::kKTBytes;
+      copy_tile<D, kKT>(stage, kp + k_lo * st.k.s, st.k.s, skv - k_lo);
+      copy_tile<D, kKT>(stage + L::kKTBytes, vp + k_lo * st.v.s, st.v.s,
+                        skv - k_lo);
+    }
+  };
+  // group 0: Q, dO and tile 0; group 1: tile 1 (maybe empty)
+  copy_tile<D, kQT>(q_smem, q + bi * st.q.b + h * st.q.h + q_lo * st.q.s,
+                    st.q.s, sq - q_lo);
+  copy_tile<D, kQT>(do_smem,
+                    dout + bi * st.dout.b + h * st.dout.h + q_lo * st.dout.s,
+                    st.dout.s, sq - q_lo);
+  load_kv(0);
+  cp_async_commit();
+  load_kv(1);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wq_lo = q_lo + 16 * warp;  // the warp's first query row
+  const int row0 = wq_lo + lane / 4;   // this lane's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);     // and its first column in an n-tile
+  float row_lse[2], row_delta[2];
+  const long long rows = (static_cast<long long>(bi) * hq + h) * sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    row_lse[r] = qi < sq ? lse[rows + qi] : 0.f;
+    row_delta[r] = qi < sq ? delta[rows + qi] : 0.f;
+  }
+  // ldmatrix row addresses. Q, dO (A, x4): rows lane % 16, d 8 (lane /
+  // 16). K, V (B of two key n-tiles, x4): keys lane % 8 + 8 (lane / 16), d
+  // 8 ((lane / 8) % 2). K (B of two d n-tiles, x4.trans): keys lane % 16,
+  // d 8 (lane / 16).
+  const uint32_t a_frag =
+      ((16 * warp + lane % 16) * L::kRow + 8 * (lane / 16)) * 2;
+  const uint32_t b_frag =
+      ((lane % 8 + 8 * (lane / 16)) * L::kRow + 8 * ((lane / 8) % 2)) * 2;
+  const uint32_t t_frag = ((lane % 16) * L::kRow + 8 * (lane / 16)) * 2;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 1>();  // tile i (and Q, dO) have landed
+    __syncthreads();
+#pragma unroll 1
+    for (int sub = 0; sub < kKT / kSub; ++sub) {
+      const int k_lo = (j_begin + i) * kKT + sub * kSub;
+      const uint32_t ks = kv_ring + (i % kStages) * 2 * L::kKTBytes +
+                          sub * kSub * L::kRow * 2;
+      const uint32_t vs = ks + L::kKTBytes;
+
+      // S = Q K^T and dP = dO V^T for the warp's 16 rows x kSub keys
+      float s[kSub / 8][4], dp[kSub / 8][4];
+#pragma unroll
+      for (int n = 0; n < kSub / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t a[4];
+        ldmatrix_x4(a, q_smem + a_frag + kd * 32);
+#pragma unroll
+        for (int np = 0; np < kSub / 16; ++np) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, ks + b_frag + (np * 16 * L::kRow + kd * 16) * 2);
+          mma(s[2 * np], a, bk[0], bk[1]);
+          mma(s[2 * np + 1], a, bk[2], bk[3]);
+        }
+        ldmatrix_x4(a, do_smem + a_frag + kd * 32);
+#pragma unroll
+        for (int np = 0; np < kSub / 16; ++np) {
+          uint32_t bv[4];
+          ldmatrix_x4(bv, vs + b_frag + (np * 16 * L::kRow + kd * 16) * 2);
+          mma(dp[2 * np], a, bv[0], bv[1]);
+          mma(dp[2 * np + 1], a, bv[2], bv[3]);
+        }
+      }
+      const bool edge = k_lo + kSub > skv || wq_lo + 16 > sq ||
+                        (causal && k_lo + kSub - 1 > wq_lo) ||
+                        (window > 0 && wq_lo + 15 - k_lo >= window);
+#pragma unroll
+      for (int n = 0; n < kSub / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = !edge || live(row0 + 8 * (e / 2),
+                                        k_lo + 8 * n + col0 + e % 2, sq, skv,
+                                        causal, window);
+          probs(s[n][e], dp[n][e], ok, row_lse[e / 2], row_delta[e / 2],
+                scale, softcap, inv_cap);
+        }
+
+      // dQ += dS K, 16 keys a step; dS from the dP fragments, split in two
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split(dp[2 * kk][0], dp[2 * kk][1], hi[0], lo[0]);
+        split(dp[2 * kk][2], dp[2 * kk][3], hi[1], lo[1]);
+        split(dp[2 * kk + 1][0], dp[2 * kk + 1][1], hi[2], lo[2]);
+        split(dp[2 * kk + 1][2], dp[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk,
+                            ks + t_frag + (kk * 16 * L::kRow + dn * 16) * 2);
+          mma(acc[2 * dn], hi, bk[0], bk[1]);
+          mma(acc[2 * dn], lo, bk[0], bk[1]);
+          mma(acc[2 * dn + 1], hi, bk[2], bk[3]);
+          mma(acc[2 * dn + 1], lo, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    load_kv(i + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= sq) continue;
+    bf16* qrow = dq + bi * st.dq.b + h * st.dq.h + qi * st.dq.s + col0;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * r] * scale,
+                                acc[n][2 * r + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, const Operands& st, int b, int hq, int hkv,
+           int sq, int skv, int causal, int window, float softcap,
+           float scale, cudaStream_t s) {
+  using L = Layout<D>;
+  auto dkdv = dkdv_kernel<D>;
+  auto dqk = dq_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kDkdvBytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(dqk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(L::kDqBytes));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(b) * hq * sq;
+  const long long delta_blocks = (rows + kWarps - 1) / kWarps;
+  const long long kv_blocks =
+      static_cast<long long>(hkv) * b * ((skv + L::kBK - 1) / L::kBK);
+  const long long q_blocks =
+      static_cast<long long>(hq) * b * ((sq + kQT - 1) / kQT);
+  if (delta_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL ||
+      q_blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  delta_kernel<bf16, D><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
+                          s>>>(static_cast<const bf16*>(o), tdo, delta, st,
+                               hq, sq, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv<<<static_cast<unsigned>(kv_blocks), kThreads, L::kDkdvBytes, s>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), st, b, hq, hkv, sq, skv, causal, window,
+      softcap, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<static_cast<unsigned>(q_blocks), kThreads, L::kDqBytes, s>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), st, b, hq, hkv,
+      sq, skv, causal, window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_d(int d, const void* q, const void* k, const void* v,
+             const void* o, const void* dout, const float* lse, float* delta,
+             void* dq, void* dk, void* dv, const Operands& st, int b, int hq,
+             int hkv, int sq, int skv, int causal, int window, float softcap,
+             float scale, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 256: return launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the dynamic shared memory of the dK/dV and dQ kernels at head dim d
+int shared_bytes(int d, int* dkdv, int* dq) {
+  switch (d) {
+    case 16: *dkdv = Layout<16>::kDkdvBytes; *dq = Layout<16>::kDqBytes; return 0;
+    case 32: *dkdv = Layout<32>::kDkdvBytes; *dq = Layout<32>::kDqBytes; return 0;
+    case 64: *dkdv = Layout<64>::kDkdvBytes; *dq = Layout<64>::kDqBytes; return 0;
+    case 128: *dkdv = Layout<128>::kDkdvBytes; *dq = Layout<128>::kDqBytes; return 0;
+    case 256: *dkdv = Layout<256>::kDkdvBytes; *dq = Layout<256>::kDqBytes; return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
+// The C entries' common part: checks the arguments, then bfloat16 to the
+// tensor cores (or, with `replaced`, to the SIMT kernels it replaced) and
+// float32 to the SIMT kernels; the launch that succeeded writes its route.
+int entry(bool replaced, const void* q, const void* k, const void* v,
+          const void* o, const void* dout, const float* lse, float* delta,
+          void* dq, void* dk, void* dv, int dtype, int b, int hq, int hkv,
+          int sq, int skv, int d, const long long* t, int causal, int window,
+          float softcap, float scale, cudaStream_t s, int* route) {
+  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
+      window < 0 || softcap < 0.f || hq > 65535 || hkv > 65535 ||
+      b > 65535 || t == nullptr || lse == nullptr || delta == nullptr ||
+      route == nullptr || (dtype != kF32 && dtype != kBF16) ||
+      (replaced && dtype != kBF16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Operands st{{t[0], t[1], t[2]},    {t[3], t[4], t[5]},
+                    {t[6], t[7], t[8]},    {t[9], t[10], t[11]},
+                    {t[12], t[13], t[14]}, {t[15], t[16], t[17]},
+                    {t[18], t[19], t[20]}, {t[21], t[22], t[23]}};
+  const bool tensor_cores = dtype == kBF16 && !replaced;
+  const int err =
+      tensor_cores
+          ? tc::launch_d(d, q, k, v, o, dout, lse, delta, dq, dk, dv, st, b,
+                         hq, hkv, sq, skv, causal, window, softcap, scale, s)
+      : dtype == kBF16
+          ? launch_d<__nv_bfloat16>(d, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, st, b, hq, hkv, sq, skv, causal,
+                                    window, softcap, scale, s)
+          : launch_d<float>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, st,
+                            b, hq, hkv, sq, skv, causal, window, softcap,
+                            scale, s);
+  if (err == 0) *route = tensor_cores ? kTensorCore : kSimt;
+  return err;
+}
+
 }  // namespace bwd
 
 }  // namespace
@@ -1201,33 +1884,42 @@ int attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
 // strides: eight triples (batch, head, sequence) for q, k, v, o, dout, dq,
 // dk, dv in that order, each tensor's last dimension contiguous and its
 // rows 16-byte aligned. Three launches on the stream: delta, dk/dv, dq.
-// Both dtypes take the SIMT kernels.
+// bfloat16 launches the tensor-core kernels and float32 the SIMT ones; the
+// launch that succeeded writes which into *route (0 SIMT, 1 tensor cores).
 int attn_bwd_launch(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* delta, void* dq, void* dk, void* dv, int dtype,
                     int b, int hq, int hkv, int sq, int skv, int d,
                     const long long* strides, int causal, int window,
-                    float softcap, float scale, void* stream) {
-  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
-      window < 0 || softcap < 0.f || hq > 65535 || hkv > 65535 ||
-      b > 65535 || strides == nullptr || lse == nullptr ||
-      delta == nullptr || (dtype != kF32 && dtype != kBF16)) {
+                    float softcap, float scale, void* stream, int* route) {
+  return bwd::entry(false, q, k, v, o, dout, lse, delta, dq, dk, dv, dtype,
+                    b, hq, hkv, sq, skv, d, strides, causal, window, softcap,
+                    scale, static_cast<cudaStream_t>(stream), route);
+}
+
+// attn_bwd_launch's contract in bfloat16 alone, through the SIMT kernels
+// that the tensor-core route replaced (operands widened to float32): a
+// control to time beside it, which no path of the package calls.
+int attn_bwd_replaced_launch(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int dtype, int b, int hq,
+                             int hkv, int sq, int skv, int d,
+                             const long long* strides, int causal,
+                             int window, float softcap, float scale,
+                             void* stream, int* route) {
+  return bwd::entry(true, q, k, v, o, dout, lse, delta, dq, dk, dv, dtype,
+                    b, hq, hkv, sq, skv, d, strides, causal, window, softcap,
+                    scale, static_cast<cudaStream_t>(stream), route);
+}
+
+// The dynamic shared memory, in bytes, that attn_bwd_launch's tensor-core
+// dK/dV and dQ kernels take at head dim d (a CTA each); 0 on success.
+int attn_bwd_shared_memory(int d, int* dkdv, int* dq) {
+  if (dkdv == nullptr || dq == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long* t = strides;
-  const bwd::Operands st{{t[0], t[1], t[2]},    {t[3], t[4], t[5]},
-                         {t[6], t[7], t[8]},    {t[9], t[10], t[11]},
-                         {t[12], t[13], t[14]}, {t[15], t[16], t[17]},
-                         {t[18], t[19], t[20]}, {t[21], t[22], t[23]}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == kBF16
-             ? bwd::launch_d<__nv_bfloat16>(d, q, k, v, o, dout, lse, delta,
-                                            dq, dk, dv, st, b, hq, hkv, sq,
-                                            skv, causal, window, softcap,
-                                            scale, s)
-             : bwd::launch_d<float>(d, q, k, v, o, dout, lse, delta, dq, dk,
-                                    dv, st, b, hq, hkv, sq, skv, causal,
-                                    window, softcap, scale, s);
+  return bwd::tc::shared_bytes(d, dkdv, dq);
 }
 
 }  // extern "C"

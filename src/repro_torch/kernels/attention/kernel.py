@@ -32,12 +32,22 @@ that writes none, unchanged by the backward's arrival.
 the reference's hand-written VJP ``_flash_core_bwd``
 (``repro/models/attention.py:181-215``; the JAX package has no backward
 kernel): ``dq, dk, dv`` from q, k, v, the forward's output and ``lse``,
-and the output's gradient, with every key valid. Both dtypes run the SIMT
-kernels (float32 tiles and arithmetic, outputs rounded once), three
-launches a call (``delta = rowsum(dO * O)``, then dK/dV, then dQ), no
-atomics: two calls give the same bits. It reads every operand through its
-strides, as the forward does; its ``launches`` counts calls, one a call
-(it has one route, so it keeps no ``route_launches``).
+and the output's gradient, with every key valid. Three launches a call
+(``delta = rowsum(dO * O)``, then dK/dV, then dQ), no atomics: two calls
+give the same bits. bfloat16 runs on the tensor cores (``mma.sync``; P
+and dS split into two bf16 terms for the three gradient products, as
+``ref.attention_bwd_rounded_ref`` states), float32 on the SIMT kernels
+(float32 tiles and arithmetic), which hold the reference's 1e-5. It reads
+every operand through its strides, as the forward does; its ``launches``
+counts calls, one a call, and ``route_launches`` counts them by ``(dtype,
+route)`` as the C entry reports the route it launched.
+
+:func:`flash_attention_bwd_replaced_cuda` takes the same arguments in
+bfloat16 alone and runs the SIMT kernels on them (operands widened to
+float32 in shared memory): the design that the tensor-core route replaced,
+kept as a control for ``chip_smoke.py`` to time beside it, with a
+``launches`` counter of its own. No path of the package calls it, and
+nothing falls back to it.
 """
 
 from __future__ import annotations
@@ -78,14 +88,28 @@ def _lib() -> ctypes.CDLL:
         _I, _F, _F, _P, ctypes.POINTER(_I),
     ]
     lib.attn_fwd_launch.restype = _I
-    lib.attn_bwd_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _BWD_STRIDES, _I, _I, _F, _F, _P,
-    ]
-    lib.attn_bwd_launch.restype = _I
+    for entry in (lib.attn_bwd_launch, lib.attn_bwd_replaced_launch):
+        entry.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _I, _BWD_STRIDES, _I, _I, _F, _F, _P, ctypes.POINTER(_I),
+        ]
+        entry.restype = _I
+    lib.attn_bwd_shared_memory.argtypes = [_I, ctypes.POINTER(_I),
+                                           ctypes.POINTER(_I)]
+    lib.attn_bwd_shared_memory.restype = _I
     lib.attn_error_string.argtypes = [_I]
     lib.attn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_shared_memory(d: int) -> dict[str, int]:
+    """The dynamic shared memory in bytes a CTA of K4b's tensor-core dK/dV
+    and dQ kernels takes at head dim ``d``, as the built library reports
+    it. Builds the library on first use."""
+    dkdv, dq = _I(), _I()
+    if _lib().attn_bwd_shared_memory(d, ctypes.byref(dkdv), ctypes.byref(dq)):
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    return {"dkdv": dkdv.value, "dq": dq.value}
 
 
 def strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -190,23 +214,9 @@ def _usable(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def flash_attention_bwd_cuda(
-    q: torch.Tensor,              # (B, Hq, Sq, D)
-    k: torch.Tensor,              # (B, Hkv, Skv, D)
-    v: torch.Tensor,
-    out: torch.Tensor,            # (B, Hq, Sq, D), the forward's output
-    dout: torch.Tensor,           # (B, Hq, Sq, D), its gradient
-    lse: torch.Tensor,            # (B, Hq, Sq) float32, the forward's
-    *,
-    causal: bool = True,
-    window: int = 0,
-    softcap: float = 0.0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` on the card, each in the layout and dtype of q, k
-    and v; the contract of
-    :func:`~repro_torch.kernels.attention.ref.attention_bwd_ref`. q, k, v
-    and out are read where they lie (they come from the forward); dout is
-    copied once if its layout is not one the kernels read."""
+def _backward(entry, q, k, v, out, dout, lse, causal, window, softcap):
+    """``(dq, dk, dv)`` and the route that the C entry ``entry`` reports
+    it launched."""
     _check(q, k, v)
     dout = _usable(dout)
     b, hq, sq, d = q.shape
@@ -230,24 +240,66 @@ def flash_attention_bwd_cuda(
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     layout = _BWD_STRIDES(*(x for t in (q, k, v, out, dout, dq, dk, dv)
                             for x in strides(t)))
+    route = _I(-1)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.attn_bwd_launch(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], b, hq, hkv, sq,
             skv, d, layout, int(causal), int(window), float(softcap),
             1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
+            ctypes.byref(route),
         )
     if err != 0:
         msg = lib.attn_error_string(err).decode()
         raise RuntimeError(f"attention backward kernel failed: CUDA error "
                            f"{err} ({msg})")
+    return (dq, dk, dv), ROUTES[route.value]
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,              # (B, Hq, Sq, D)
+    k: torch.Tensor,              # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    out: torch.Tensor,            # (B, Hq, Sq, D), the forward's output
+    dout: torch.Tensor,           # (B, Hq, Sq, D), its gradient
+    lse: torch.Tensor,            # (B, Hq, Sq) float32, the forward's
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` on the card, each in the layout and dtype of q, k
+    and v; the contract of
+    :func:`~repro_torch.kernels.attention.ref.attention_bwd_ref`. q, k, v
+    and out are read where they lie (they come from the forward); dout is
+    copied once if its layout is not one the kernels read."""
+    grads, route = _backward("attn_bwd_launch", q, k, v, out, dout, lse,
+                             causal, window, softcap)
     flash_attention_bwd_cuda.launches += 1
-    return dq, dk, dv
+    flash_attention_bwd_cuda.route_launches[
+        (str(q.dtype).removeprefix("torch."), route)] += 1
+    return grads
+
+
+def flash_attention_bwd_replaced_cuda(q, k, v, out, dout, lse, *,
+                                      causal=True, window=0, softcap=0.0):
+    """:func:`flash_attention_bwd_cuda`'s contract in bfloat16 through the
+    SIMT kernels that its tensor-core route replaced: a control to time,
+    never called by the package."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the replaced bf16 backward takes bfloat16 (got "
+                        f"{q.dtype})")
+    grads, _ = _backward("attn_bwd_replaced_launch", q, k, v, out, dout,
+                         lse, causal, window, softcap)
+    flash_attention_bwd_replaced_cuda.launches += 1
+    return grads
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.route_launches = collections.Counter()
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.route_launches = collections.Counter()
+flash_attention_bwd_replaced_cuda.launches = 0

@@ -30,6 +30,12 @@ P (dP - delta)``, times ``1 - tanh(u / c)^2`` on the pre-cap scores ``u``
 where there is a softcap, masked to 0; the query gradient is taken through
 the ``1/sqrt(d)`` scale, and the key and value gradients of a GQA group sum
 over its query heads, as autodiff of ``_expand_kv`` does.
+
+:func:`attention_bwd_rounded_ref` states the arithmetic of K4b's bfloat16
+tensor-core route in plain torch, for the tests and ``chip_smoke.py``:
+bf16 operands taken exactly, S and dP summed in float32 and scaled there,
+and P and dS split into ``terms`` bf16 parts before the three gradient
+products (``terms=1``: bf16 P and dS, the unsplit control).
 """
 
 from __future__ import annotations
@@ -135,6 +141,66 @@ def attention_bwd_ref(
     ds = torch.where(mask, ds, torch.zeros((), device=q.device))
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """``x`` (float32) as the float32 sum of ``terms`` bf16 parts, each the
+    bf16 rounding of what the earlier parts leave: what the tensor cores
+    see of a float32 operand split that many ways."""
+    total = torch.zeros_like(x)
+    for _ in range(terms):
+        total = total + (x - total).to(torch.bfloat16).to(x.dtype)
+    return total
+
+
+def attention_bwd_rounded_ref(
+    q: torch.Tensor,              # (B, Hq, Sq, D) bfloat16
+    k: torch.Tensor,              # (B, Hkv, Skv, D) bfloat16
+    v: torch.Tensor,
+    out: torch.Tensor,            # (B, Hq, Sq, D) bfloat16, the forward's
+    dout: torch.Tensor,           # (B, Hq, Sq, D) bfloat16
+    lse: torch.Tensor,            # (B, Hq, Sq) float32, the forward's
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    terms: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention_bwd_ref` as K4b's tensor-core route rounds it:
+    ``u = (q k) / sqrt(d)`` and ``dP = dO v`` from the bf16 values in
+    float32, scaled after the sum; P and dS in float32 as the reference
+    has them, then each taken as ``terms`` bf16 parts (:func:`bf16_terms`)
+    for ``dV = Pᵀ dO``, ``dK = dSᵀ q / sqrt(d)`` and ``dQ = dS k /
+    sqrt(d)``, summed in float32 and rounded once to bfloat16."""
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v, out, dout)):
+        raise TypeError("the rounded backward takes bfloat16 operands")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(f32).reshape(b, hkv, g, sq, d)
+    kf, vf = k.to(f32), v.to(f32)
+    gf = dout.to(f32).reshape(b, hkv, g, sq, d)
+    lse5 = lse.reshape(b, hkv, g, sq)
+    delta = (gf * out.to(f32).reshape(b, hkv, g, sq, d)).sum(dim=-1)
+    u = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    s = softcap_fn(u, softcap) if softcap > 0 else u
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=0,
+                 skv_valid=skv, device=q.device)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - lse5[..., None])
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap > 0:
+        ds = ds * softcap_grad(u, softcap)
+    ds = torch.where(mask, ds, torch.zeros((), device=q.device))
+    p, ds = bf16_terms(p, terms), bf16_terms(ds, terms)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, gf)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
