@@ -45,19 +45,26 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    the window as a mask at recurrentgemma's), and, at gemma2's, the
    float32 SIMT kernel's: the arithmetic of the bf16 design it replaced.
    Then K4b (its backward) against ``attention_bwd_ref`` at gemma2's
-   training shape (B 4, Hq 8, Hkv 4, S 2048, d 256, causal, softcap 50)
-   and recurrentgemma's (B 2, Hq 10, Hkv 1, S 4608, window 2048), in
-   float32 (the SIMT kernels) and bfloat16 (the tensor cores, P and dS
-   split in two bf16 terms), per gradient in relative L2, two calls
-   bit-identical, each launch's route as its dtype's; in float32 with q
-   scaled by 8 the controls (no softcap derivative, delta zero) must fall
-   outside, in bfloat16 the unsplit control (``attention_bwd_rounded_ref``
+   training shape (B 4, Hq 8, Hkv 4, S 2048, d 256, causal, softcap
+   50), recurrentgemma's (B 2, Hq 10, Hkv 1, S 4608, window 2048) and
+   dbrx's (B 2, Hq 48, Hkv 8, S 2048, d 128, causal), in float32 (the
+   SIMT kernels) and bfloat16 (the tensor cores, P and dS split in two
+   bf16 terms), per gradient in relative L2, two calls bit-identical,
+   each launch's route as its dtype's; in float32 the controls (no
+   softcap derivative with q scaled by 8, delta zero) must fall outside,
+   in bfloat16 the unsplit control (``attention_bwd_rounded_ref``
    with bf16 P and dS), beside which the route's own arithmetic in plain
    torch is logged; at gemma2's shape in bfloat16 the tensor-core route,
    the SIMT kernels it replaced (which it must beat), the backward of
    ``scaled_dot_product_attention`` (softcap 0) and the plain version
    timed in turns, beside the bound (10 d a live pair at the bf16
-   tensor-core rate) and the route's executed TFLOP/s (20 d a pair);
+   tensor-core rate) and the route's executed TFLOP/s (20 d a pair).
+   Then K4 at the MoE prefill shapes (head dim 128, causal, no softcap:
+   q (4, 48, 2048, 128) over k/v (4, 8, 2048, 128), dbrx's, and q (4, 56,
+   2048, 128), arctic's), bfloat16, to one unit and within the relative
+   L2 band that the bf16-probability control must miss, timed beside the
+   plain version, ``scaled_dot_product_attention`` (the same function
+   here) and the bound;
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
    state (also through the public ``ops.ssd_mixer``) and a ragged
@@ -177,15 +184,46 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     repro_torch.launch.serve --ckpt-dir`` on its checkpoint, on the card
     at their reduced config, each printing its ``done step=`` or
     ``restored from`` line;
-17. K4's, K4b's and K5's route checks: every bfloat16 launch of K4, K4b
+17. the MoE serving paths, ``dbrx_132b`` (16 experts, top 4) at 8 of its
+    40 layers and ``arctic_480b`` (128 experts, top 2, a dense residual) at
+    2 of its 35, at full width (capacity factor 1.25) from seed 21, each
+    through ``build_model`` (drawn leaf by leaf into the model: 27.3B and
+    27.7B bfloat16 parameters) and ``ServeEngine.serve_queue`` over 8
+    requests of 2,048-token prompts in 4 slots, 16 greedy new tokens: K4
+    launched 16 and 4 times, the same tokens twice, the replayed decode,
+    the (token, slot) pairs dropped at capacity in each prefill and decode
+    step logged; each batch's prefill logits through K4 against the plain
+    attention, logged with the (token, layer) pairs whose top-k experts
+    differ between the two runs (routing flips; the seeded attention is
+    one-hot, so a last-bit difference grows to O(1) within a few blocks);
+    every block, fed the plain run's input and routing, held within a band
+    from chip readings that the bf16-probability control must miss; one
+    prefill's MoE time by stage (router and top-k, dispatch, expert
+    products, combine, aux losses, dense residual, the rest of
+    ``moe_apply``) under CUDA events recorded around ``models/moe.py``'s
+    own calls; then, drawn in float32 at 2 and 1 layers, the prefill
+    logits with the plain run's routing imposed within a band the
+    bf16-probability control must miss, and the teacher-forced decode against the forward pass at
+    capacity factor E / k (no pair dropped on either side, counted) within
+    a band the int8 KV cache must miss;
+18. expert parallelism on one card: one full-width dbrx MoE layer in
+    float32 through ``EPContext`` over a one-rank NCCL ``DeviceMesh`` (1,
+    1) ("data", "model"), the gather and the all-to-all layout, each
+    within 1e-5 of the local path (y, lb, z);
+19. the MoE training path: full-width ``dbrx_132b`` at 1 layer trained by
+    ``Trainer.run`` for 3 steps on one fixed 2 x 2,048 batch of the
+    byte-level corpus (bfloat16 moments, remat, one microbatch): the loss
+    falling, ``moe_lb`` and ``moe_z`` finite, K4 2 and K4b 1 launches a
+    step on the tensor cores, seconds a step and peak memory logged;
+20. K4's, K4b's and K5's route checks: every bfloat16 launch of K4, K4b
     and K5 in the whole run must have taken the tensor-core route and
     every float32 launch the SIMT one, as the launch that ran reports its
     route (each wrapper counts launches by dtype and route), and each
     path's launches by route must add up to its count; the SIMT backward
     that K4b's tensor-core route replaced must have no launch outside its
     timing in phase 5;
-18. one JSON line of per-kernel numbers, then the last line
-    ``{"ok": true, "device": {...}}``.
+21. one JSON line of per-kernel numbers (K4's with its MoE-shape
+    readings), then the last line ``{"ok": true, "device": {...}}``.
 
 The parameter count of every serving path is checked against the
 config's, block kind by block kind.
@@ -202,6 +240,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import os
@@ -362,7 +401,8 @@ TRAIN_SERVE = (4, 256, 8)
 # 512 tokens, a checkpoint every 2 steps, the crash at step 3
 CRASH = dict(layers=4, batch=4, seq=512, steps=6, every=2, at=3)
 # K4b against its plain version: gemma2's training shape (b, hq, hkv, s, d;
-# causal, softcap 50) and recurrentgemma's (window 2048), relative L2 per
+# causal, softcap 50), recurrentgemma's (window 2048) and dbrx's (head dim
+# 128, 48 query heads over 8, no softcap), relative L2 per
 # gradient: float32 (the SIMT kernels) about 8x the largest H100 reading
 # (1.2e-6, q scaled by 8; the controls read 0.25 and more there); bfloat16
 # set when both dtypes ran the SIMT kernels (3.0e-5 read), which the
@@ -370,7 +410,8 @@ CRASH = dict(layers=4, batch=4, seq=512, steps=6, every=2, at=3)
 # torch, ``attention_bwd_rounded_ref``) must hold and the unsplit control
 # (bf16 P and dS, 2.5e-3) must miss
 K4B_CASES = [((4, 8, 4, 2048, 256), 0, 50.0), ((2, 10, 1, 4608, 256), 2048,
-                                                0.0)]
+                                                0.0),
+             ((2, 48, 8, 2048, 128), 0, 0.0)]
 K4B_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-4}
 # operations K4b's tensor-core route executes against its bound's 10 d a
 # live pair: S and dP in both kernels, and dV, dK and dQ on P or dS split in
@@ -400,6 +441,51 @@ GRAD_CHECKS = {
 GRAD_REL_L2 = {"gemma2_2b": 5e-4, "mamba2_1_3b": 3e-5,
                "recurrentgemma_2b": 3e-5}
 GRAD_K6 = (4, 4608, 2560)
+# the MoE paths: dbrx_132b (16 experts, top 4) and arctic_480b (128, top 2,
+# a dense residual) at full width (widths, experts, top_k, capacity factor
+# 1.25, vocabularies as published) and a depth one card holds: weights from
+# seed 21, bfloat16, 8 requests of 2,048-token prompts in 4 slots, 16 greedy
+# new tokens (SERVE_*); then drawn in float32 at a smaller depth (arctic at
+# 2 x 512 tokens), the teacher-forced decode at capacity factor E / k (no
+# pair dropped). The seeded attention is one-hot (score std 313 and 338,
+# the init rule's fan-in of wq being the query heads), so a last-bit
+# difference in one block moves the next by far more (PERF.md: dbrx's
+# blocks, chained with one routing, read 4.0e-4, 2.3e-2, 0.16 ... 0.97 in
+# bfloat16): the served depth's end-to-end bfloat16 logits are logged, and
+# held block by block, each block fed the plain run's input and routing
+# (``block_band``, which the bf16-probability control must miss: dbrx's
+# blocks read 4.0e-4-6.8e-4 / control 1.44e-3-2.46e-3, arctic's 4.3e-4,
+# 5.4e-4 / 1.43e-3, 1.82e-3); end to end in float32 at the cut depth
+# (``logits_band``: dbrx 5.0e-6 / control 8.7e-3, arctic 2.3e-7 / 1.9e-4;
+# ``decode_band``, over the decode steps: dbrx 2.4e-3 max / the int8 cache
+# 7.6e-3 min, 0.74 max, arctic 1.1e-4 / 7.5e-3, 0.32), each band near the
+# geometric mean of a reading and its control (for the decode, of the
+# largest step reading and the control's largest step, which alone must
+# pass the band, as in ``teacher_forced_check``: dbrx's band lies above
+# the control's smallest step, arctic's just under it)
+MOE_SEED = 21
+MOE_PROMPT = 2048
+MOE_SERVING = {
+    "dbrx_132b": dict(layers=8, block_band=1e-3, f32_layers=2,
+                      f32_prompt=(4, 2048), logits_band=2e-4,
+                      decode_band=4e-2),
+    "arctic_480b": dict(layers=2, block_band=1e-3, f32_layers=1,
+                        f32_prompt=(2, 512), logits_band=6e-6,
+                        decode_band=6e-3),
+}
+# expert parallelism on one card: one full-width dbrx MoE layer in float32
+# over a one-rank mesh, (batch, tokens)
+MOE_EP_TOKENS = (2, 2048)
+# MoE training: full-width dbrx_132b at 1 layer, 3 steps of one fixed 2 x
+# 2,048 batch of the byte-level corpus, one microbatch (the float32
+# gradient accumulator of two would add 17 GiB), bfloat16 moments
+MOE_TRAIN_ARCH = "dbrx_132b"
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG, microbatches=1, seed=MOE_SEED)
+# K4 at the MoE prefill shapes (b, s, hq, hkv, d): causal, no softcap
+K4_MOE = {"dbrx_132b": (4, MOE_PROMPT, 48, 8, 128),
+          "arctic_480b": (4, MOE_PROMPT, 56, 8, 128)}
 # the checkpoint bundle: 2**33 bytes, a bf16 checkpoint of ~4.3B parameters
 BUNDLE_BYTES = 1 << 33
 BUNDLE_SEED = 12
@@ -1545,6 +1631,71 @@ def check_k4(k4, dev):
     }
 
 
+def check_k4_moe_shapes(k4, dev):
+    """K4 at the MoE archs' prefill shapes (``K4_MOE``: head dim 128,
+    causal, no softcap, GQA 48/8 and 56/8, bfloat16) against its plain
+    version, to one unit (``K4_TOL``) and within ``K4_REL_L2``, which the
+    bf16-probability control must miss; each timed beside the plain
+    version, ``scaled_dot_product_attention`` (the same function here: no
+    softcap) and the bound. Returns {arch: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    atol, rtol = K4_TOL["bfloat16"]
+    out = {}
+    for arch, (b, s, hq, hkv, d) in K4_MOE.items():
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d)))
+        kw = dict(causal=True, window=0, softcap=0.0)
+        what = f"K4 at {arch}'s prefill shape {(b, s, hq, hkv, d)} bfloat16"
+        got = k4.flash_attention_cuda(q, k, v, **kw)
+        want = k4.attention_bhsd_ref(q, k, v, **kw)
+        got32, want32 = got.to(torch.float32), want.to(torch.float32)
+        err = float((got32 - want32).abs().max())
+        bad = ~torch.isclose(got32, want32, atol=atol, rtol=rtol)
+        rel = rel_l2(got, want)
+        control = rel_l2(attention_bf16_probs(q, k, v, **kw), want)
+        del got32, want32
+        log(f"{what}: max |diff| {err:.3g} within atol {atol:.3g} rtol "
+            f"{rtol:.3g} ({int(bad.sum())} outside); relative L2 {rel:.4g} "
+            f"(band {K4_REL_L2:.4g}); the bf16-probability control reads "
+            f"{control:.4g}")
+        if not torch.isfinite(got).all() or bool(bad.any()):
+            fail(f"{what}: {int(bad.sum())} values outside one unit of the "
+                 f"plain version (max |diff| {err})")
+        if rel > K4_REL_L2 or control <= K4_REL_L2:
+            fail(f"{what}: relative L2 {rel}, control {control}, band "
+                 f"{K4_REL_L2}")
+        del got, want, bad
+        ms = median_ms(lambda: k4.flash_attention_cuda(q, k, v, **kw),
+                       reps=10)
+        plain_ms = median_ms(lambda: k4.attention_bhsd_ref(q, k, v, **kw),
+                             reps=3)
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), reps=10)
+        del ke, ve
+        bound_ms, bound_by, flops = k4_bound(q, k, window=0)
+        log(f"{what}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"scaled_dot_product_attention {library_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
+            f"{100 * bound_ms / ms:.1f} % of the bound)")
+        out[arch] = {
+            "shape": [b, s, hq, hkv, d], "dtype": "bfloat16", "softcap": 0.0,
+            "max_abs_err": err, "rel_l2": rel, "control_rel_l2": control,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(is_causal=True)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+            "gflop": flops / 1e9}
+        del q, k, v
+    return out
+
+
 # ------------------------------------------------------------------ K6
 
 
@@ -1897,15 +2048,16 @@ def layer_kinds(cfg) -> list[str]:
 def uncounted_params(cfg) -> int:
     """The parameters that ``ModelConfig.param_count`` leaves out: the norm
     gains (one d_model vector before the head, one before each block's
-    mixer and one before its FFN, which an ssd block lacks) and, in an ssd
-    block, ``d_skip`` and the inner norm's gain (it counts two of the three
-    per-head vectors)."""
+    mixer and one before its FFN, which an ssd block lacks), in an ssd
+    block ``d_skip`` and the inner norm's gain (it counts two of the three
+    per-head vectors), and in an MoE block the router (d_model x
+    experts)."""
     total = cfg.d_model
     for kind in layer_kinds(cfg):
         if kind == "ssd":
             total += cfg.d_model + cfg.ssm_heads + cfg.ssm_d_inner
         else:
-            total += 2 * cfg.d_model
+            total += 2 * cfg.d_model + cfg.d_model * cfg.num_experts
     return total
 
 
@@ -1939,15 +2091,17 @@ def replay_decode(bundle, params, prompts, tokens, handoff=None):
     return torch.stack(steps, dim=1)
 
 
-def serve_and_check(bundle, params, reqs, counters):
+def serve_and_check(bundle, params, reqs, counters,
+                    observe=contextlib.nullcontext):
     """``reqs`` through ``ServeEngine.serve_queue`` in ``SERVE_SLOTS``
     slots, ``SERVE_NEW`` greedy tokens each, every prefill and decode step
     timed. Each kernel counter of ``counters`` (name -> wrapper) is set to 0
     before the run and read after it, and must equal one launch per layer
     of its block kinds per prefill. Then: the call counts, tokens in the
     vocabulary, the same tokens from a second run, and the first batch's
-    decode, replayed, picking the served tokens. Returns the path's numbers
-    and the first batch's (prompts, served tokens) on the card."""
+    decode, replayed, picking the served tokens. ``observe`` is a context
+    factory around the first run alone. Returns the path's numbers and the
+    first batch's (prompts, served tokens) on the card."""
     import numpy as np
     import torch
 
@@ -1977,9 +2131,10 @@ def serve_and_check(bundle, params, reqs, counters):
         wrapper.launches = 0
     routed = {name: collections.Counter(w.route_launches)
               for name, w in counters.items() if hasattr(w, "route_launches")}
-    t0 = time.perf_counter()
-    outs = engine.serve_queue(reqs, slots=SERVE_SLOTS)
-    wall = time.perf_counter() - t0
+    with observe():
+        t0 = time.perf_counter()
+        outs = engine.serve_queue(reqs, slots=SERVE_SLOTS)
+        wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in counters.items()}
     routes = {name: by_route(collections.Counter(
         counters[name].route_launches) - before)
@@ -2034,16 +2189,20 @@ def serve_and_check(bundle, params, reqs, counters):
     }, prompts, served
 
 
-def build_seeded(arch, seed, device=None):
-    """``build_model`` of the full-width ``arch`` and its parameters from a
-    ``torch.Generator`` seeded ``seed`` on the card, by the reference's
-    init rule; checks the parameter count against the config's."""
+def build_seeded(arch, seed, device=None, configure=None):
+    """``build_model`` of the full-width ``arch`` (its config passed
+    through ``configure``, if given: a cut depth or dtype) and its
+    parameters from a ``torch.Generator`` seeded ``seed`` on the card, by
+    the reference's init rule; checks the parameter count against the
+    config's."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
+    if configure is not None:
+        cfg = configure(cfg)
     bundle = build_model(cfg, device)
     gen = torch.Generator(device=bundle.device).manual_seed(seed)
     t0 = time.perf_counter()
@@ -2355,7 +2514,7 @@ def ssd_bf16_checks(bundle, params, prompts, kernels, logits_band,
 
     def contribution(context):
         with context():
-            out, _ = tf.block_apply_seq(layer, x, positions, cfg, kind)
+            out, _, _ = tf.block_apply_seq(layer, x, positions, cfg, kind)
         return out.to(torch.float32) - x.to(torch.float32)
 
     want = contribution(lambda: plain_kernels(*kernels))
@@ -2413,8 +2572,8 @@ def recorded_blocks(record):
 
     inner = tf.block_apply_seq
 
-    def run(params, x, positions, cfg, kind, **kw):
-        out = inner(params, x, positions, cfg, kind, **kw)
+    def run(params, x, positions, cfg, kind, *args, **kw):
+        out = inner(params, x, positions, cfg, kind, *args, **kw)
         record.append((x, out[0]))
         return out
 
@@ -2484,14 +2643,14 @@ def layerwise_check(bundle, params, prompt, served, kernels, bands):
         want = y - x
         pre = x[:, :s]
         prefill = readings["prefill"][kind]
-        got, entry = tf.block_apply_seq(layer, pre, positions[..., :s], cfg,
-                                        kind)
+        got, entry, _ = tf.block_apply_seq(layer, pre, positions[..., :s],
+                                           cfg, kind)
         prefill.setdefault("sound", []).append(rel_l2(got - pre, want[:, :s]))
         (control, faulty), variants = (
             attention_checks if "self" in entry else state_checks)
         with faulty():
-            ctrl, _ = tf.block_apply_seq(layer, pre, positions[..., :s], cfg,
-                                         kind)
+            ctrl, _, _ = tf.block_apply_seq(layer, pre, positions[..., :s],
+                                            cfg, kind)
         prefill.setdefault(control, []).append(rel_l2(ctrl - pre,
                                                       want[:, :s]))
         for name, (handoff, context) in variants.items():
@@ -2700,12 +2859,13 @@ def attention_bwd_faulty(q, k, v, out, dout, lse, *, fault, **kw):
 
 def check_k4b(k4, dev):
     """K4b against its plain version on the card at gemma2's training
-    shape (causal, softcap 50) and recurrentgemma's (one key/value head,
-    window 2048), in float32 and bfloat16, within ``K4B_REL_L2`` per
-    gradient, bit-identical from one call to the next, each launch on its
-    dtype's route (``DTYPE_ROUTE``); the controls must fall outside: in
-    float32, with q scaled so that the scores reach the softcap's bend,
-    those of ``attention_bwd_faulty``; in bfloat16 the unsplit control
+    shape (causal, softcap 50), recurrentgemma's (one key/value head,
+    window 2048) and dbrx's (``K4B_CASES``), in float32 and bfloat16,
+    within ``K4B_REL_L2`` per gradient, bit-identical from one call to the
+    next, each launch on its dtype's route (``DTYPE_ROUTE``); the controls
+    must fall outside: in float32, those of ``attention_bwd_faulty`` (with
+    a softcap, where q is scaled so that the scores reach its bend); in
+    bfloat16 the unsplit control
     (``attention_bwd_rounded_ref`` with bf16 P and dS), beside which the
     route's own arithmetic in plain torch (two terms) is logged. At
     gemma2's shape in bfloat16 it times, in turns, the tensor-core route,
@@ -2789,7 +2949,7 @@ def check_k4b(k4, dev):
                          for n, r in witness.items()}) if witness else ""))
                 if max(rels) > band:
                     fail(f"{what}: relative L2 {rels} above {band}")
-                if q_scale > 1.0 or dtype == torch.bfloat16:
+                if q_scale > 1.0 or not cap or dtype == torch.bfloat16:
                     for name, c in controls.items():
                         if c <= band:
                             fail(f"{what}: the control '{name}' ({c}) is "
@@ -3497,6 +3657,624 @@ def run_launchers(device=None):
         return out
 
 
+# ------------------------------------------------------------------ MoE paths
+
+
+@contextlib.contextmanager
+def moe_routing(record):
+    """Append each MoE layer's routing to ``record`` as the model runs it:
+    (tokens, each pair's expert, the dropped pairs' count on the device)."""
+    from repro_torch.models import moe
+
+    inner = moe._route
+
+    def route(x2d, router, cfg, capacity, ids=None):
+        r = inner(x2d, router, cfg, capacity, ids=ids)
+        record.append((x2d.shape[0], r.ids, (~r.keep).sum()))
+        return r
+
+    with swapped(moe, "_route", route):
+        yield
+
+
+def by_rows(fn):
+    """``fn``, an attention with ``attention_bhsd_ref``'s contract, one
+    batch row at a time: the same values with a quarter of the float32
+    temporaries at the MoE prefill's four rows (three of them 3 GiB at
+    dbrx's (4, 48, 2048, 2048) scores)."""
+    import torch
+
+    def run(q, k, v, **kw):
+        return torch.cat([fn(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+                          for i in range(q.shape[0])])
+
+    return run
+
+
+def moe_plain(kernels):
+    """The plain attention in K4's place, by rows (the MoE archs run no
+    other kernel)."""
+    return sequence_attention(by_rows(kernels[0].attention_bhsd_ref))
+
+
+def moe_bf16_probs():
+    """The bf16-probability control in K4's place, by rows."""
+    return sequence_attention(by_rows(attention_bf16_probs))
+
+
+def routing_flips(a, b, k) -> int:
+    """The (token, layer) pairs whose set of top-k experts differs between
+    two records of the same calls."""
+    flips = 0
+    for (_, ids_a, _), (_, ids_b, _) in zip(a, b, strict=True):
+        sa = ids_a.reshape(-1, k).sort(dim=-1).values
+        sb = ids_b.reshape(-1, k).sort(dim=-1).values
+        flips += int((sa != sb).any(dim=-1).sum())
+    return flips
+
+
+def dropped(record) -> list[int]:
+    return [int(n) for _, _, n in record]
+
+
+@contextlib.contextmanager
+def pinned_routing(ids_of):
+    """Each MoE layer's experts as ``ids_of(call, tokens)`` gives them (a
+    recorded run's, call by call), imposed through ``moe._route``'s
+    ``ids``: the gates from the layer's own probabilities at those
+    experts, the ranks and keep mask recomputed from them, so that two
+    arithmetics compare without the discontinuity of routing between
+    them."""
+    from repro_torch.models import moe
+
+    inner = moe._route
+    calls = itertools.count()
+
+    def route(x2d, router, cfg, capacity, ids=None):
+        return inner(x2d, router, cfg, capacity,
+                     ids=ids_of(next(calls), x2d.shape[0]))
+
+    with swapped(moe, "_route", route):
+        yield
+
+
+def moe_logits_check(bundle, params, batches, kernels, band=None):
+    """Each batch's last-position prefill logits through K4 against the
+    same model through the plain attention, each run routing as it will:
+    logged with the (token, layer) pairs whose top-k experts differ (a
+    near-tie in a router's probabilities flips an expert on the last bit
+    of the attention) and the pairs dropped at capacity. Without a
+    ``band`` (the bfloat16 served depth, where the seeded one-hot
+    attention carries a last-bit difference to O(1) within a few layers,
+    routing pinned or not: ``moe_layerwise_check`` holds it block by
+    block) that is all. With one, the K4 run is read again with the plain
+    run's routing imposed (``pinned_routing``), beside the bf16-probability
+    control under the same routing, and it fails when that reading passes
+    the band or the control does not."""
+    import torch
+
+    cfg = bundle.cfg
+    what = (f"{cfg.name} {cfg.param_dtype} ({cfg.num_layers} layers) prefill "
+            f"logits")
+    keys = ("free_rel_l2", "routing_flips", "dropped_pairs")
+    out = {k: [] for k in keys + (("rel_l2", "control_rel_l2") if band
+                                  else ())}
+    for tokens in batches:
+        batch = {"tokens": tokens}
+        through, plain_record = [], []
+        with moe_routing(through):
+            free = bundle.prefill_fn(params, batch)[0]
+        with moe_plain(kernels), moe_routing(plain_record):
+            plain = bundle.prefill_fn(params, batch)[0]
+        if not torch.isfinite(free).all():
+            fail(f"non-finite {what}")
+        out["free_rel_l2"].append(rel_l2(free, plain))
+        out["routing_flips"].append(routing_flips(through, plain_record,
+                                                  cfg.top_k))
+        out["dropped_pairs"].append(sum(dropped(through)))
+        agree = float((free.argmax(-1) == plain.argmax(-1)).float().mean())
+        pinned = ""
+        if band:
+            def plain_ids(call, _):
+                return plain_record[call][1]
+
+            with pinned_routing(plain_ids):
+                got = bundle.prefill_fn(params, batch)[0]
+            with pinned_routing(plain_ids), moe_bf16_probs():
+                low = bundle.prefill_fn(params, batch)[0]
+            if not torch.isfinite(got).all():
+                fail(f"non-finite {what}")
+            out["rel_l2"].append(rel_l2(got, plain))
+            out["control_rel_l2"].append(rel_l2(low, plain))
+            pinned = (f"; with the plain run's routing: relative L2 "
+                      f"{out['rel_l2'][-1]:.4g} (band {band:.4g}), the "
+                      f"bf16-probability control "
+                      f"{out['control_rel_l2'][-1]:.4g}")
+        log(f"MoE path: {what} through K4 vs the plain attention, each "
+            f"routing as it will: relative L2 {out['free_rel_l2'][-1]:.4g}, "
+            f"argmax agreement {agree:.2f}, routing flips "
+            f"{out['routing_flips'][-1]} of {tokens.numel() * cfg.num_layers}"
+            f" (token, layer) pairs, {out['dropped_pairs'][-1]} (token, "
+            f"slot) pairs dropped at capacity" + pinned)
+        del through, plain_record
+    if band is None:
+        return out
+    if max(out["rel_l2"]) > band:
+        fail(f"{what} through K4 (the plain run's routing) differ from the "
+             f"plain attention's by {max(out['rel_l2'])} relative (band "
+             f"{band})")
+    if min(out["control_rel_l2"]) <= band:
+        fail(f"{what}: the band {band} does not tell the bf16-probability "
+             f"control ({min(out['control_rel_l2'])}) from the plain "
+             "attention")
+    return out
+
+
+def moe_layerwise_check(bundle, params, tokens, kernels, band):
+    """Every block of the served model fed the input it gets in the
+    prefill through the plain attention, with that run's routing
+    (``pinned_routing``), so that no difference carries from one block to
+    the next: its contribution (output minus input) through K4 against
+    the plain run's, by relative L2, beside the bf16-probability control;
+    the block routing as it will (its flips) is logged, and beside it each
+    block's output in the whole K4 prefill under the same routing (each
+    block fed the K4 run's own input: what carries a difference from one
+    block to the next). Fails when a reading passes ``band`` or the
+    control does not."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import default_positions
+
+    cfg, dev = bundle.cfg, bundle.device
+    plain_record, blocks = [], []
+    with moe_plain(kernels), moe_routing(plain_record), \
+            recorded_blocks(blocks):
+        bundle.prefill_fn(params, {"tokens": tokens})
+    chained = []
+    with pinned_routing(lambda call, _: plain_record[call][1]), \
+            recorded_blocks(chained):
+        bundle.prefill_fn(params, {"tokens": tokens})
+    positions = default_positions(cfg, *tokens.shape, device=dev)
+    out = {k: [] for k in ("rel_l2", "control_rel_l2", "free_rel_l2",
+                           "routing_flips")}
+    out["chained_rel_l2"] = [rel_l2(yk, yp) for (_, yk), (_, yp)
+                             in zip(chained, blocks, strict=True)]
+    del chained
+    layers = list(tf.layers_in_order(params, cfg))
+    for i, ((kind, layer, _), (x, y)) in enumerate(zip(layers, blocks,
+                                                       strict=True)):
+        want = y.to(torch.float32) - x.to(torch.float32)
+
+        def plain_ids(call, _, i=i):
+            return plain_record[i][1]
+
+        def contribution(*contexts):
+            with contextlib.ExitStack() as stack:
+                for context in contexts:
+                    stack.enter_context(context)
+                got, _, _ = tf.block_apply_seq(layer, x, positions, cfg, kind)
+            return got.to(torch.float32) - x.to(torch.float32)
+
+        free_record = []
+        out["rel_l2"].append(rel_l2(contribution(pinned_routing(plain_ids)),
+                                    want))
+        out["control_rel_l2"].append(rel_l2(contribution(
+            pinned_routing(plain_ids), moe_bf16_probs()), want))
+        out["free_rel_l2"].append(rel_l2(contribution(
+            moe_routing(free_record)), want))
+        out["routing_flips"].append(routing_flips(
+            free_record, plain_record[i:i + 1], cfg.top_k))
+    del blocks, plain_record
+    what = (f"{cfg.name} {cfg.param_dtype} ({cfg.num_layers} layers) block by "
+            f"block")
+    log(f"MoE path: {what}, each block's contribution through K4 vs the "
+        f"plain attention with the plain run's routing: relative L2 "
+        + ", ".join(f"{r:.3g}" for r in out["rel_l2"])
+        + f" (band {band:.4g}); the bf16-probability control "
+        + ", ".join(f"{r:.3g}" for r in out["control_rel_l2"])
+        + "; routing as it will: " + ", ".join(
+            f"{r:.3g} ({n} flips)" for r, n in zip(out["free_rel_l2"],
+                                                    out["routing_flips"]))
+        + "; each block's output in the whole K4 prefill (the same "
+        "routing, chained): " + ", ".join(f"{r:.3g}"
+                                          for r in out["chained_rel_l2"]))
+    if max(out["rel_l2"]) > band:
+        fail(f"{what}: relative L2 {max(out['rel_l2'])} above {band}")
+    if min(out["control_rel_l2"]) <= band:
+        fail(f"{what}: the band {band} does not tell the bf16-probability "
+             f"control ({min(out['control_rel_l2'])}) from the plain "
+             "attention")
+    return out
+
+
+def moe_teacher_forced_check(bundle, int8, params, prompts, served, kernels,
+                             band):
+    """``teacher_forced_check`` for the MoE archs: each decode step's
+    logits (after K4's prefill), the served tokens fed back, against the
+    forward pass through the plain attention over the prompt and the
+    tokens before it. The forward's routing (recorded token by token) is
+    imposed on the prefill and every decode step (``pinned_routing``), so
+    that a flip does not stand in for the decode's arithmetic; the free
+    decode is read beside it. The band must catch the int8 KV cache under
+    the same routing. Returns the readings and the pairs dropped (at
+    ``bundle``'s capacity, which must drop none)."""
+    import torch
+
+    cfg = bundle.cfg
+    b, s = prompts.shape
+    n = served.shape[1]
+    layers, k = cfg.num_layers, cfg.top_k
+    record = []
+    with moe_plain(kernels), moe_routing(record):
+        want = torch.stack([
+            bundle.forward_fn(params, {"tokens": torch.cat(
+                [prompts[j], served[j, :-1]])[None]})[0, s:].to(torch.float32)
+            for j in range(b)])
+    drops = sum(dropped(record))
+    # per layer, (requests, positions, k): the experts of every token
+    table = [torch.stack([record[j * layers + i][1].reshape(-1, k)
+                          for j in range(b)]) for i in range(layers)]
+    del record
+
+    def forward_ids(call, _):
+        # the prefill (call // layers == 0), then one decode step a chunk
+        i, chunk = call % layers, call // layers
+        rows = table[i][:, :s] if chunk == 0 else table[i][:, s + chunk - 1]
+        return rows.reshape(-1)
+
+    def readings(model, pinned=True):
+        nonlocal drops
+        routed = []
+        context = (functools.partial(pinned_routing, forward_ids) if pinned
+                   else contextlib.nullcontext)
+        with context(), moe_routing(routed):
+            decoded = replay_decode(model, params, prompts, served)
+        drops += sum(dropped(routed))
+        return [rel_l2(decoded[j, i], want[j, i])
+                for j in range(b) for i in range(n - 1)]
+
+    sound = readings(bundle)
+    free = readings(bundle, pinned=False)
+    control = readings(int8)
+    what = (f"{cfg.name} {cfg.param_dtype} ({cfg.num_layers} layers) "
+            f"teacher-forced decode")
+    log(f"MoE path: {what} ({b} requests x {n - 1} steps, cache length "
+        f"{s + 1}..{s + n - 1}, capacity factor {cfg.capacity_factor}) vs "
+        f"the forward pass, with its routing: relative L2 median "
+        f"{statistics.median(sound):.4g}, max {max(sound):.4g} (band "
+        f"{band:.4g}); the int8 KV cache min {min(control):.4g}, max "
+        f"{max(control):.4g}; routing as it will: median "
+        f"{statistics.median(free):.4g}, max {max(free):.4g}; {drops} pairs "
+        f"dropped in all")
+    if max(sound) > band:
+        fail(f"{what} logits differ from the forward pass's by {max(sound)} "
+             f"relative (band {band})")
+    if max(control) <= band:
+        fail(f"{what}: the band {band} does not catch the int8 KV cache (at "
+             f"most {max(control)})")
+    if drops:
+        fail(f"{what}: {drops} pairs dropped at capacity factor "
+             f"{cfg.capacity_factor}")
+    return {"rel_l2_max": max(sound), "rel_l2_median":
+            statistics.median(sound), "free_rel_l2_max": max(free),
+            "control_rel_l2": [min(control), max(control)],
+            "dropped_pairs": drops}
+
+
+def moe_time_split(bundle, params, tokens, rounds=3):
+    """One prefill's MoE layers timed stage by stage: CUDA events recorded
+    around ``models/moe.py``'s own calls inside each ``moe_apply`` of the
+    prefill (median of ``rounds`` prefills): router and top-k
+    (``_route``), dispatch, the expert products, combine, the aux losses,
+    arctic's dense residual, and the rest of ``moe_apply`` (the
+    destinations and gate weights between the stages). Returns {stage: ms
+    summed over the layers}."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = bundle.cfg
+    stages = {"_route": "router and top-k", "_dispatch": "dispatch",
+              "_experts": "expert products", "_combine": "combine",
+              "_aux_losses": "aux losses"}
+    if cfg.moe_dense_residual:
+        stages["mlp_apply"] = "dense residual"
+    spans = []
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return run
+
+    totals = []
+    with contextlib.ExitStack() as stack:
+        for attr, name in stages.items():
+            stack.enter_context(swapped(moe, attr,
+                                        timed(name, getattr(moe, attr))))
+        stack.enter_context(swapped(tf, "moe_apply",
+                                    timed("moe_apply", tf.moe_apply)))
+        for _ in range(rounds):
+            spans.clear()
+            bundle.prefill_fn(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            total = collections.Counter()
+            for name, start, end in spans:
+                total[name] += start.elapsed_time(end)
+            total["the rest of moe_apply"] = total.pop("moe_apply") - sum(
+                total[n] for n in stages.values())
+            totals.append(total)
+    if sum(n == "moe_apply" for n, _, _ in spans) != cfg.num_layers:
+        fail(f"MoE time split: {cfg.name}'s prefill ran moe_apply "
+             f"{sum(n == 'moe_apply' for n, _, _ in spans)} times, not "
+             f"{cfg.num_layers}")
+    split = {name: statistics.median(t[name] for t in totals)
+             for name in totals[0]}
+    log(f"MoE path: {cfg.name} one prefill's {cfg.num_layers} MoE layers "
+        f"({tokens.shape[0]} x {tokens.shape[1]} tokens), ms by stage "
+        "(CUDA events around moe.py's calls): " + json.dumps(
+            {n: round(v, 3) for n, v in split.items()}))
+    return split
+
+
+def moe_serving_path(arch, kernels, counters, device=None, configure=None,
+                     prompt=MOE_PROMPT):
+    """``arch`` at full width and ``MOE_SERVING[arch]["layers"]`` layers
+    (bfloat16, seed ``MOE_SEED``) through ``build_model`` and
+    ``ServeEngine.serve_queue`` with the serving checks of
+    ``serve_and_check`` (K4 2 x layers launches), the pairs dropped at
+    capacity in each prefill and decode step, the prefill logits through
+    K4 against the plain attention (``moe_logits_check``) and one
+    prefill's MoE time by stage; then, drawn directly in float32 at
+    ``f32_layers``, the prefill logits again and the teacher-forced decode
+    against the forward pass with the capacity raised to ``E / k`` (no
+    pair drops on either side), against the int8 KV cache control.
+    ``configure`` narrows the config (a rehearsal on the host). Returns
+    the path's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+
+    spec = MOE_SERVING[arch]
+    narrow = configure or (lambda c: c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"MoE path {arch}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "held on the card before it")
+    bundle, params, _, built = build_seeded(
+        arch, MOE_SEED, device, lambda c: narrow(dataclasses.replace(
+            c, num_layers=spec["layers"])))
+    cfg, dev = bundle.cfg, bundle.device
+    rng = np.random.default_rng(MOE_SEED)
+    reqs = list(rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, prompt))
+                .astype(np.int32))
+    routing = []
+    numbers, prompts, served = serve_and_check(
+        bundle, params, reqs, counters,
+        observe=lambda: moe_routing(routing))
+    sharpness = attention_sharpness(bundle, params, prompts[:1], kernels)
+    # each prefill and decode step runs every layer's router once
+    per_call = [(routing[i][0], sum(dropped(routing[i:i + cfg.num_layers])))
+                for i in range(0, len(routing), cfg.num_layers)]
+    prefill_drops = [n for t, n in per_call if t > SERVE_SLOTS]
+    decode_drops = [n for t, n in per_call if t <= SERVE_SLOTS]
+    del routing
+    log(f"MoE path: {cfg.name} (token, slot) pairs dropped at capacity "
+        f"factor {cfg.capacity_factor}: each prefill {prefill_drops} of "
+        f"{SERVE_SLOTS * prompt * cfg.top_k * cfg.num_layers}, the decode "
+        f"steps {decode_drops} of {SERVE_SLOTS * cfg.top_k * cfg.num_layers} "
+        "each")
+    batches = [torch.as_tensor(np.stack(reqs[i:i + SERVE_SLOTS]), device=dev)
+               for i in range(0, SERVE_REQUESTS, SERVE_SLOTS)]
+    bf16 = moe_logits_check(bundle, params, batches, kernels)
+    blocks = moe_layerwise_check(bundle, params, batches[0], kernels,
+                                 spec["block_band"])
+    split = moe_time_split(bundle, params, batches[0])
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32, drawn at the cut depth
+    b32, p32 = spec["f32_prompt"]
+    bundle32, params32, _, built32 = build_seeded(
+        arch, MOE_SEED, device, lambda c: narrow(dataclasses.replace(
+            c, num_layers=spec["f32_layers"], param_dtype="float32",
+            compute_dtype="float32")))
+    cfg32 = bundle32.cfg
+    prompts32, served32 = prompts[:b32, :p32], served[:b32]
+    f32 = moe_logits_check(bundle32, params32, [prompts32], kernels,
+                           spec["logits_band"])
+    roomy = dataclasses.replace(cfg32, capacity_factor=cfg32.num_experts
+                                / cfg32.top_k)
+    decode = moe_teacher_forced_check(
+        build_model(roomy, dev),
+        build_model(dataclasses.replace(roomy, kv_cache_dtype="int8"), dev),
+        params32, prompts32, served32, kernels, spec["decode_band"])
+    del params32, bundle32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**numbers, **built, "layers": cfg.num_layers, "prompt": prompt,
+            "prefill_dropped_pairs": prefill_drops,
+            "decode_dropped_pairs": decode_drops,
+            "attention_sharpness": sharpness,
+            "prefill_logits_bf16": bf16, "blocks_bf16": blocks,
+            "moe_ms_by_stage": split,
+            "f32": {**built32, "layers": cfg32.num_layers,
+                    "prompt": [b32, p32], "prefill_logits": f32,
+                    "decode": decode}}
+
+
+def moe_ep_check(device=None, cfg=None, shape=MOE_EP_TOKENS):
+    """One full-width dbrx MoE layer (float32, seed ``MOE_SEED``) through
+    ``EPContext`` over a one-rank ``DeviceMesh`` of shape (1, 1) ("data",
+    "model"), NCCL on the card, in the gather and the all-to-all layout:
+    y, lb and z within the reference's 1e-5 of the local path's
+    (``tests/test_moe.py:24-32``). ``cfg`` narrows it (a rehearsal)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.compat import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.core import single_rank_group
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.moe import EPContext, moe_apply, moe_specs
+
+    dev = resolve_device(device)
+    cfg = cfg or dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                                     param_dtype="float32",
+                                     compute_dtype="float32")
+    single_rank_group(device)
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    params = init_params(moe_specs(cfg), gen, torch.float32, dev)
+    x = torch.randn((*shape, cfg.d_model), generator=gen, device=dev)
+    out = {}
+    with torch.no_grad():
+        y, aux = moe_apply(params, x, cfg)
+        for layout in ("gather", "a2a"):
+            c = dataclasses.replace(cfg, moe_layout=layout)
+            got, got_aux = moe_apply(params, x, c, EPContext(mesh=mesh))
+            err = float((got - y).abs().max())
+            ok = bool(torch.allclose(got, y, atol=1e-5, rtol=1e-5)) and all(
+                abs(float(got_aux[n]) - float(aux[n]))
+                <= 1e-5 * (1 + abs(float(aux[n]))) for n in ("lb", "z"))
+            out[layout] = {"max_abs_err": err,
+                           "lb": [float(got_aux["lb"]), float(aux["lb"])],
+                           "z": [float(got_aux["z"]), float(aux["z"])]}
+            log(f"MoE expert parallelism: {cfg.name} one layer ({shape[0]} x "
+                f"{shape[1]} tokens, float32) through a one-rank "
+                f"{dist.get_backend()} mesh (1, 1), {layout} layout, against "
+                f"the local path: y max |diff| {err:.3g}, lb (mesh, local) "
+                f"{out[layout]['lb']}, z {out[layout]['z']}")
+            if not ok:
+                fail(f"MoE expert parallelism, {layout} layout: not within "
+                     f"1e-5 of the local path ({out[layout]})")
+    del params, x, y
+    dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+class FixedBatcher:
+    """The ``Trainer``'s batcher interface over one batch, every step."""
+
+    def __init__(self, batch):
+        from repro_torch.data.pipeline import DataState
+
+        self.batch = batch
+        self.state = DataState()
+
+    def iter_from(self, state):
+        self.state = dataclasses.replace(state)
+        while True:
+            self.state.cursor += 1
+            yield self.batch
+
+
+def run_moe_training_path(counters, device=None, cfg=None, batch=None,
+                          seq=None, steps=MOE_TRAIN_STEPS):
+    """dbrx_132b at full width and 1 layer (or ``cfg``) trained by
+    ``Trainer.run`` under ``run_with_restarts`` for ``steps`` steps on one
+    fixed batch of the byte-level corpus, bfloat16 moments, remat, no
+    checkpoint (the gemma2 path holds those); the kernel counters set to 0
+    before the run and read after it: K4 2 and K4b 1 a layer a
+    microbatch, every launch on the tensor cores. The loss must fall;
+    ``moe_lb`` and ``moe_z`` must be finite. Returns the path's
+    numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import CorpusSpec, HostBatcher, ShardedCorpus
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer, TrainerConfig, run_with_restarts
+
+    cfg = cfg or dataclasses.replace(get_config(MOE_TRAIN_ARCH), num_layers=1)
+    batch, seq = batch or MOE_TRAIN_BATCH, seq or TRAIN_SEQ
+    bundle = build_model(cfg, device)
+    tcfg = TrainConfig(**MOE_TRAIN_CONFIG)
+    corpus = ShardedCorpus(CorpusSpec(
+        num_shards=2, tokens_per_shard=2 * batch * (seq + 1),
+        seed=TRAIN_SEED))
+    fixed = HostBatcher([corpus.shard_tokens(i) for i in range(2)],
+                        batch_size=batch, seq_len=seq).take(1)[0]
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        trainer = Trainer(
+            bundle, tcfg, FixedBatcher(fixed),
+            TrainerConfig(ckpt_dir=tmp, ckpt_every=steps, log_every=1),
+            log_fn=log)
+        trainer._save = lambda state, step: None
+        clock = StepClock(trainer.train_step)
+        metrics = []
+
+        def step(state, b):
+            state, m = clock(state, b)
+            metrics.append({k: float(m[k]) for k in ("loss", "moe_lb",
+                                                     "moe_z")})
+            return state, m
+
+        trainer.train_step = step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counters.values():
+            w.launches = 0
+        routed = {n: collections.Counter(w.route_launches)
+                  for n, w in counters.items() if hasattr(w, "route_launches")}
+        t0 = time.perf_counter()
+        final, restarts = run_with_restarts(
+            lambda: trainer.run(steps).final_step)
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in counters.items()}
+        routes = {n: by_route(collections.Counter(counters[n].route_launches)
+                              - before) for n, before in routed.items()}
+        peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in clock.last.params.parameters())
+    step_s, k4b_ms = list(clock.seconds), list(clock.k4b_ms)
+    del clock, trainer
+    torch.cuda.empty_cache()
+    layers = sum(k in ("attn", "local_attn") for k in layer_kinds(cfg))
+    mb = tcfg.microbatches
+    want = {"flash_attention": 2 * steps * mb * layers,
+            "flash_attention_bwd": steps * mb * layers,
+            "flash_attention_bwd_replaced": 0}
+    losses = [m["loss"] for m in metrics]
+    log(f"MoE training path {cfg.name} ({cfg.num_layers} layer, "
+        f"{n_params} parameters): {steps} steps of one fixed {batch} x {seq} "
+        f"batch in {mb} microbatch(es), wall {wall:.2f}s; step seconds "
+        f"{[round(t, 3) for t in step_s]}; K4b "
+        f"{[round(t, 2) for t in k4b_ms]} ms a step; metrics {metrics}; "
+        f"launches {launches} (counted {want}), by route {routes}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    if (final, restarts) != (steps, 0) or len(metrics) != steps or not (
+            np.isfinite([list(m.values()) for m in metrics]).all()
+            and losses[-1] < losses[0]):
+        fail(f"MoE training path: final step {final}, {restarts} restarts, "
+             f"metrics {metrics} (finite, the loss falling, wanted)")
+    if launches != want:
+        fail(f"MoE training path: launches {launches}, not {want}")
+    for name, r in routes.items():
+        wrong = {k: n for k, n in r.items()
+                 if DTYPE_ROUTE.get(k.split("/")[0]) != k.split("/")[1]}
+        if wrong or sum(r.values()) != launches[name]:
+            fail(f"MoE training path: {name} launches by route {r}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+            "steps": steps, "batch": batch, "seq": seq, "microbatches": mb,
+            "wall_s": wall, "step_s": step_s, "k4b_ms_per_step": k4b_ms,
+            "metrics": metrics, "launches": launches, "routes": routes,
+            "peak_gib": peak / 2**30}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3558,6 +4336,7 @@ def main() -> int:
         check_k3(k3, dev)
         k4_record = check_k4(k4, dev)
         k4_record["ptxas"] = k4_ptxas
+        k4_record["moe_prefill"] = check_k4_moe_shapes(k4, dev)
         k4b_record = check_k4b(k4, dev)
         k4b_record["ptxas"] = k4b_ptxas
         k5_record = check_k5(k5, dev)
@@ -3607,6 +4386,19 @@ def main() -> int:
     log("crash and restart outcome: " + json.dumps(crash))
     with phase("launchers"):
         run_launchers()
+    for arch in MOE_SERVING:
+        with phase(f"MoE serving path {arch} with its checks"):
+            outcome = moe_serving_path(arch, (k4, k5, k6), counters)
+        log(f"MoE serving path {arch} outcome: " + json.dumps(outcome))
+        paths[arch] = outcome["launches"]
+        routes[arch] = outcome["routes"]
+    with phase("MoE expert parallelism on one card"):
+        ep = moe_ep_check()
+    log("MoE expert parallelism outcome: " + json.dumps(ep))
+    with phase(f"MoE training path {MOE_TRAIN_ARCH}"):
+        moe_training = run_moe_training_path(train_counters)
+    log("MoE training path outcome: " + json.dumps(moe_training))
+    moe_train_path = f"train {MOE_TRAIN_ARCH}"
     # each kernel's launches on the first path that runs it: serving for
     # K4, K5 and K6, training for K4b
     k4_record["launches"] = paths[SERVE_ARCH]["flash_attention"]
@@ -3618,8 +4410,11 @@ def main() -> int:
             arch: counts[record["name"]] for arch, counts in paths.items()}
     k4_record["launches_by_path"][f"train {TRAIN_ARCH}"] = (
         training["launches"]["flash_attention"])
+    k4_record["launches_by_path"][moe_train_path] = (
+        moe_training["launches"]["flash_attention"])
     k4b_record["launches_by_path"] = {
-        f"train {TRAIN_ARCH}": training["launches"]["flash_attention_bwd"]}
+        f"train {TRAIN_ARCH}": training["launches"]["flash_attention_bwd"],
+        moe_train_path: moe_training["launches"]["flash_attention_bwd"]}
     train_path = f"train {TRAIN_ARCH}"
     for record, wrapper in ((k4_record, k4.flash_attention_cuda),
                             (k5_record, k5.ssd_chunked_cuda)):
@@ -3628,13 +4423,18 @@ def main() -> int:
         if record is k4_record:
             by_path[train_path] = (training["routes"]["flash_attention"],
                                    training["launches"]["flash_attention"])
+            by_path[moe_train_path] = (
+                moe_training["routes"]["flash_attention"],
+                moe_training["launches"]["flash_attention"])
         record["routes"] = check_routes(
             "K4" if record is k4_record else "K5", wrapper.route_launches,
             by_path)
     k4b_record["routes"] = check_routes(
         "K4b", k4.flash_attention_bwd_cuda.route_launches,
         {train_path: (training["routes"]["flash_attention_bwd"],
-                      training["launches"]["flash_attention_bwd"])})
+                      training["launches"]["flash_attention_bwd"]),
+         moe_train_path: (moe_training["routes"]["flash_attention_bwd"],
+                          moe_training["launches"]["flash_attention_bwd"])})
     if k4.flash_attention_bwd_replaced_cuda.launches:
         fail(f"the SIMT backward that K4b's tensor-core route replaced was "
              f"launched {k4.flash_attention_bwd_replaced_cuda.launches} "

@@ -10,9 +10,12 @@ its local attention through K4, e.g.::
 
     python -m repro_torch.launch.serve --arch mamba2_1_3b --device cpu
     python -m repro_torch.launch.serve --arch recurrentgemma_2b
+    python -m repro_torch.launch.serve --arch dbrx_132b --device cpu
 
-The MoE archs and seamless raise ``NotImplementedError`` (``ROADMAP.md``
-queue 1 items 1 and 2). ``--ckpt-dir`` restores the ``params`` leaves of
+``--arch dbrx_132b`` and ``--arch arctic_480b`` run their
+mixture-of-experts FFNs on the local path (every expert on this device)
+beside K4; seamless raises ``NotImplementedError`` (``ROADMAP.md`` queue 1
+item 2). ``--ckpt-dir`` restores the ``params`` leaves of
 the latest checkpoint under it (one that ``launch.train`` or the JAX
 package's trainer wrote: the format is shared) into the seeded model, as
 the reference does, and serves those weights::

@@ -8,11 +8,13 @@ supervisor. The config is always the arch's ``.reduce()``, as the
 reference's ``--reduced`` (a flag that defaults to True) makes it; the
 full configs are trained through :class:`~repro_torch.train.Trainer`
 directly. It runs on the CUDA card, through K4 and its backward K4b (and
-K5, K6 for the state archs); ``--device cpu`` runs the kernels' plain
-PyTorch versions on the host, e.g.::
+K5, K6 for the state archs; the MoE archs add their router losses to the
+loss); ``--device cpu`` runs the kernels' plain PyTorch versions on the
+host, e.g.::
 
     python -m repro_torch.launch.train --device cpu --steps 20
     python -m repro_torch.launch.train --arch gemma2_2b --crash-at 12
+    python -m repro_torch.launch.train --arch dbrx_132b --device cpu --steps 6
 
 One process, one device: the reference's multi-host runtime and mesh have
 no counterpart yet (``ROADMAP.md`` queue 1 item 3), and

@@ -4,12 +4,14 @@ blocks, whose sequence attention runs through the flash-attention kernel
 K4 (and its backward K4b), of ``ssd``
 (Mamba-2) blocks, whose mixer runs through the chunked SSD kernel K5, and
 of ``rec`` (RG-LRU) blocks, whose recurrence runs through the scan kernel
-K6."""
+K6; the MoE archs' attention blocks take a mixture-of-experts FFN
+(:mod:`.moe`, local or expert-parallel through ``EPContext``)."""
 
 from .convert import params_from_jax
 from .model import ModelBundle, build_model, cross_entropy, default_positions
+from .moe import EPContext
 
 __all__ = [
-    "ModelBundle", "build_model", "cross_entropy", "default_positions",
-    "params_from_jax",
+    "EPContext", "ModelBundle", "build_model", "cross_entropy",
+    "default_positions", "params_from_jax",
 ]

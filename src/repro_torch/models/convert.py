@@ -7,9 +7,10 @@ block-pattern position's layers stacked along a leading axis
 modules hold one layer each (``groups.<i>.<g>.attn.wq``), so loading is a
 name map that splits the stacked axis. :func:`params_from_jax` takes that
 tree as numpy arrays (the caller turns jax arrays into numpy; the port
-never sees jax); :func:`load_tree` takes it as tensors, as ``init`` draws
-it. Both copy every leaf into the model and raise on a leaf left over, a
-parameter missing, or a shape that differs.
+never sees jax); :func:`load_tree` takes it as tensors. Both copy every
+leaf into the model and raise on a leaf left over, a parameter missing, or
+a shape that differs. :func:`draw_into`, what ``init`` runs, writes the
+init rule's numbers into the modules leaf by leaf as they are drawn.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .layers import tree_leaves
+from .layers import draw_params, tree_leaves
 
 
 def _targets(path: str, leaf) -> list[tuple[str, Any]]:
@@ -57,6 +58,47 @@ def load_tree(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
         raise ValueError(f"parameter trees differ: {len(leftover)} leaves "
                          f"with no parameter {leftover[:5]}, {len(missing)} "
                          f"parameters with no leaf {missing[:5]}")
+    return model
+
+
+@torch.no_grad()
+def draw_into(model: torch.nn.Module, specs: dict,
+              generator: torch.Generator) -> torch.nn.Module:
+    """``model``'s parameters drawn from ``generator`` by the reference's
+    init rule (:func:`~repro_torch.models.layers.draw_params`), each leaf
+    written into its parameters as it is drawn (cast to their dtype), so
+    that no second tree is built: the model plus one float32 leaf (or
+    slice) at a time. Raises unless every parameter is written."""
+    params = dict(model.named_parameters())
+    written = set()
+
+    def layer(parts, g):
+        # groups/<i>/<rest>, stacked: layer g is groups.<i>.<g>.<rest>
+        return ".".join([*parts[:2], str(g), *parts[2:]])
+
+    def write(path, spec, index, value):
+        parts = path.split("/")
+        if parts[0] != "groups":
+            targets = [(".".join(parts), index, value)]
+        elif index:                 # a slice of layer index[0]
+            targets = [(layer(parts, index[0]), index[1:], value)]
+        else:                       # the whole stack: layer g is value[g]
+            targets = [(layer(parts, g), (),
+                        value[g] if torch.is_tensor(value) else value)
+                       for g in range(spec.shape[0])]
+        for name, idx, v in targets:
+            p = params[name][idx] if idx else params[name]
+            if torch.is_tensor(v):
+                p.copy_(v)
+            else:
+                p.fill_(v)
+            written.add(name)
+
+    draw_params(specs, generator, next(model.parameters()).device, write)
+    missing = sorted(set(params) - written)
+    if missing:
+        raise ValueError(f"{len(missing)} parameters drawn by no leaf "
+                         f"{missing[:5]}")
     return model
 
 

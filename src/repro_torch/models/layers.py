@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -28,6 +28,12 @@ import torch.nn.functional as F
 LAYERS, EMBED, MLP, VOCAB = "layers", "embed", "mlp", "vocab"
 QHEADS, KVHEADS, HEADDIM = "q_heads", "kv_heads", "head"
 LRU, SSM_INNER, SSM_STATE, SSM_HEADS = "lru", "ssm_inner", "ssm_state", "ssm_heads"
+EXPERTS = "experts"
+EXPERTS_DP = "experts_dp"  # a2a MoE layout: expert dim sharded over 'data'
+
+#: A leaf of more elements than this is drawn one leading-axis slice at a
+#: time by :func:`draw_params` (each float32 temporary at most 4 GiB).
+DRAW_SLICE_ELEMENTS = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,30 +75,75 @@ def stack_specs(specs: Any, n: int) -> Any:
     )
 
 
+def _std(spec: ParamSpec) -> float:
+    """The reference's init scale: ``scale / sqrt(fan_in)`` (``fan_in`` the
+    second-last dim, or the last of a vector), 0.02 for ``embed`` and
+    ``small``."""
+    if spec.init in ("embed", "small"):
+        return 0.02
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    return float(spec.scale / np.sqrt(max(fan_in, 1)))
+
+
 def init_params(specs: Any, generator: torch.Generator, dtype: torch.dtype,
                 device) -> Any:
     """A tree of tensors for a tree of specs, drawn from ``generator`` (on
     ``device``) leaf by leaf in the tree's order. The reference's rule: zeros
     or ones where the spec says so; otherwise a float32 normal times
-    ``scale / sqrt(fan_in)`` (``fan_in`` the second-last dim, or the last of a
-    vector), 0.02 for ``embed`` and ``small``, cast to ``dtype``. The numbers
-    differ from ``jax.random``'s for the same seed."""
+    :func:`_std`, cast to ``dtype``. The numbers differ from
+    ``jax.random``'s for the same seed. :func:`draw_params` draws the same
+    numbers without building the tree."""
 
     def one(spec: ParamSpec) -> torch.Tensor:
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=device)
-        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-        if spec.init in ("embed", "small"):
-            std = 0.02
-        else:
-            std = spec.scale / np.sqrt(max(fan_in, 1))
         x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * float(std)).to(dtype)
+        return (x * _std(spec)).to(dtype)
 
     return tree_map(one, specs)
+
+
+def spec_leaves(tree: Any, prefix: str = ""):
+    """``(path, spec)`` of a spec tree in its own order (the order
+    :func:`tree_map` visits, which is the order of the draws)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from spec_leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def draw_params(specs: Any, generator: torch.Generator, device,
+                write: Callable[[str, ParamSpec, tuple, Any], None]) -> None:
+    """:func:`init_params`'s numbers, handed over as they are drawn:
+    ``write(path, spec, index, value)`` for each leaf in the tree's order,
+    ``value`` a float32 tensor (already scaled) or, for a ``zeros`` or
+    ``ones`` leaf, the fill as a float, and ``index`` the leading-axis
+    indices it fills (``()`` for the whole leaf). A leaf of more than
+    :data:`DRAW_SLICE_ELEMENTS` elements is drawn one leading-axis slice
+    at a time (recursively), which gives other numbers than one draw of
+    the whole leaf; every leaf of the dense and state archs is smaller and
+    is drawn whole, so their numbers are :func:`init_params`'s bit for
+    bit. Each temporary is freed before the next is drawn."""
+
+    def draw(path, spec, shape, index):
+        if math.prod(shape) > DRAW_SLICE_ELEMENTS and len(shape) > 1:
+            for i in range(shape[0]):
+                draw(path, spec, shape[1:], (*index, i))
+            return
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        write(path, spec, index, x.mul_(_std(spec)))
+        del x
+
+    for path, spec in spec_leaves(specs):
+        if spec.init in ("zeros", "ones"):
+            write(path, spec, (), 0.0 if spec.init == "zeros" else 1.0)
+        else:
+            draw(path, spec, spec.shape, ())
 
 
 class ParamTree(torch.nn.Module):

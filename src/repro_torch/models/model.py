@@ -12,8 +12,13 @@ Device rule: ``build_model(cfg)`` (``device=None``) puts the model on the
 CUDA card and raises without one; ``device="cpu"`` runs every kernel's
 plain PyTorch version on the host.
 
+``ep`` (:class:`~repro_torch.models.moe.EPContext`) says how the MoE
+archs' expert layers run: locally (the default) or over a
+``DeviceMesh``.
+
 Training enters through ``loss_fn(params, batch)``, the reference's loss
-(``repro/models/model.py:112-123``), on parameters made with
+(``repro/models/model.py:112-123``, with the MoE archs' router losses), on
+parameters made with
 ``init(generator, trainable=True)``; it runs the same decoder as serving
 with gradients on, through each kernel's ``torch.autograd.Function``
 (K4 with its backward K4b, K5, K6), and with remat per scan group as the
@@ -31,8 +36,9 @@ import torch
 from ..compat import resolve_device
 from ..configs.base import ModelConfig
 from . import transformer as tf
-from .convert import load_tree
-from .layers import ParamTree, init_params
+from .convert import draw_into
+from .layers import ParamTree
+from .moe import EPContext
 
 Params = Any
 Cache = Any
@@ -86,7 +92,8 @@ class ModelBundle:
     cache_init: Callable[..., Cache]
 
 
-def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
+def build_model(cfg: ModelConfig, device=None,
+                ep: EPContext = EPContext()) -> ModelBundle:
     dev = resolve_device(device)
     specs = tf.decoder_specs(cfg)      # raises for blocks not ported yet
     pdtype = _dtype(cfg.param_dtype)
@@ -99,9 +106,10 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
 
     def init(generator: torch.Generator, trainable: bool = False) -> Params:
         """Parameters drawn from ``generator`` (a generator of the
-        bundle's device) by the reference's init rule."""
-        return load_tree(skeleton(trainable),
-                         init_params(specs, generator, pdtype, dev))
+        bundle's device) by the reference's init rule, leaf by leaf into
+        the skeleton (``convert.draw_into``), so that the device holds the
+        model and one float32 leaf or slice at a time."""
+        return draw_into(skeleton(trainable), specs, generator)
 
     def decode_batch(params: Params, batch: dict, *, want_cache: bool = False,
                      last_only: bool = False):
@@ -110,19 +118,27 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
         positions = batch.get("positions")
         positions = (default_positions(cfg, b, s, device=dev)
                      if positions is None else positions.to(dev))
-        return tf.decoder_apply(params, tokens, positions, cfg,
+        return tf.decoder_apply(params, tokens, positions, cfg, ep,
                                 want_cache=want_cache, last_only=last_only)
 
     forward = torch.no_grad()(decode_batch)
 
     def loss_fn(params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
         """Mean next-token NLL of ``batch["targets"]`` and the reference's
-        metrics, with gradients on. As in the reference, the cross entropy
-        takes no z-loss here (``z_weight=0.0``, whatever
-        ``TrainConfig.z_loss`` says)."""
-        logits, _ = decode_batch(params, batch)
+        metrics, with gradients on; for the MoE archs plus
+        ``router_aux_weight · lb / L + router_z_weight · z / L`` (the
+        layers' sums over ``L = num_layers``), logged as ``moe_lb`` and
+        ``moe_z``. As in the reference, the cross entropy takes no z-loss
+        here (``z_weight=0.0``, whatever ``TrainConfig.z_loss`` says)."""
+        logits, aux, _ = decode_batch(params, batch)
         targets = torch.as_tensor(batch["targets"]).to(dev)
         loss, metrics = cross_entropy(logits, targets, z_weight=0.0)
+        if cfg.is_moe:
+            lb = aux["lb"] / max(cfg.num_layers, 1)
+            z = aux["z"] / max(cfg.num_layers, 1)
+            loss = loss + cfg.router_aux_weight * lb + cfg.router_z_weight * z
+            metrics["moe_lb"] = lb
+            metrics["moe_z"] = z
         metrics["loss"] = loss
         return loss, metrics
 
@@ -131,13 +147,15 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
 
     def prefill_fn(params: Params, batch: dict):
         """Process the prompt; returns (last-position logits, cache)."""
-        return forward(params, batch, want_cache=True, last_only=True)
+        logits, _, cache = forward(params, batch, want_cache=True,
+                                   last_only=True)
+        return logits, cache
 
     @torch.no_grad()
     def decode_fn(params: Params, token: torch.Tensor, position: torch.Tensor,
                   cache: Cache, cache_len: int):
         return tf.decode_step(params, token.to(dev), position.to(dev), cache,
-                              int(cache_len), cfg)
+                              int(cache_len), cfg, ep)
 
     def cache_init(batch: int, capacity: int) -> Cache:
         return tf.cache_init(cfg, batch, capacity, cdtype, dev)

@@ -13,7 +13,10 @@ repetition runs under ``torch.utils.checkpoint.checkpoint(...,
 use_reentrant=False)``, the counterpart of the reference wrapping each scan
 group in ``jax.checkpoint`` (``repro/models/transformer.py:97-111``): its
 activations are recomputed in the backward, so a training step runs each
-group's forward, K4 included, twice.
+group's forward, K4 included, twice. The sequence path returns the MoE
+aux losses (load balance ``lb`` and router ``z``) summed over the layers,
+out of the checkpoints too; the decode step drops them, as the
+reference's does.
 
 Caches mirror the structure: ``{"groups": {i: [entry per repetition]},
 "tail": {i: entry}}``. An attention entry is ``{"self": {"k", "v"[,
@@ -21,10 +24,10 @@ Caches mirror the structure: ``{"groups": {i: [entry per repetition]},
 row by row; a state entry (``rec``, ``ssd``) is ``{"h", "conv"}`` of a
 constant size, replaced by a new one at every decode step.
 
-Ported block kinds: ``attn`` and ``local_attn`` with a dense FFN, ``rec``
-(RG-LRU with a dense MLP, kernel K6) and ``ssd`` (Mamba-2, kernel K5).
-MoE FFNs and the encoder raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+Ported block kinds: ``attn`` and ``local_attn`` with a dense or an MoE
+FFN (:mod:`.moe`, routed by ``EPContext``), ``rec`` (RG-LRU with a dense
+MLP, kernel K6) and ``ssd`` (Mamba-2, kernel K5). The encoder raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from .layers import (
     embed_logits, embed_lookup, embed_specs, mlp_apply, mlp_specs, rms_norm,
     rms_norm_spec, softcap, stack_specs,
 )
+from .moe import EPContext, moe_apply, moe_specs
 from .rglru import rglru_cache_init, rglru_sequence, rglru_specs, rglru_step
 from .ssd import ssd_cache_init, ssd_sequence, ssd_specs, ssd_step
 
@@ -47,7 +51,6 @@ Params = Any
 Cache = Any
 
 _LATER = {
-    "moe": "MoE FFNs (models/moe.py) wait for ROADMAP.md queue 1 item 1",
     "encoder": "the encoder and cross attention (seamless) wait for "
                "ROADMAP.md queue 1 item 2",
 }
@@ -58,6 +61,11 @@ def not_ported(what: str) -> NotImplementedError:
 
 
 # --------------------------------------------------------------------------- specs
+
+
+def _ffn_specs(cfg: ModelConfig) -> dict:
+    return moe_specs(cfg) if cfg.is_moe else mlp_specs(cfg.d_model, cfg.d_ff,
+                                                       cfg.act)
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
@@ -73,13 +81,11 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
         }
     if kind not in ("attn", "local_attn"):
         raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.is_moe:
-        raise not_ported("moe")
     return {
         "ln1": rms_norm_spec(d),
         "attn": attn.attn_specs(cfg),
         "ln2": rms_norm_spec(d),
-        "ffn": mlp_specs(d, cfg.d_ff, cfg.act),
+        "ffn": _ffn_specs(cfg),
     }
 
 
@@ -138,21 +144,30 @@ def _entry(cache: Cache, where) -> dict:
 # --------------------------------------------------------------------------- blocks
 
 
+def _ffn_apply(params, x: torch.Tensor, cfg: ModelConfig, ep: EPContext
+               ) -> tuple[torch.Tensor, dict]:
+    if cfg.is_moe:
+        return moe_apply(params, x, cfg, ep)
+    return mlp_apply(params, x, cfg.act), {}
+
+
 def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, kind: str, *, causal: bool = True
-                    ) -> tuple[torch.Tensor, dict]:
-    """One block over a full sequence. Returns (x, cache_entry)."""
+                    cfg: ModelConfig, kind: str, ep: EPContext = EPContext(),
+                    *, causal: bool = True
+                    ) -> tuple[torch.Tensor, dict, dict]:
+    """One block over a full sequence. Returns (x, cache_entry, aux): the
+    MoE FFN's aux losses, or {}."""
     if kind == "ssd":
         h, state = ssd_sequence(
             params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
-        return x + h, state
+        return x + h, state, {}
     if kind == "rec":
         h, (hl, tail) = rglru_sequence(
             params["rec"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
         x = x + h
         x = x + mlp_apply(params["ffn"],
                           rms_norm(x, params["ln2"], cfg.norm_eps), cfg.act)
-        return x, {"h": hl, "conv": tail}
+        return x, {"h": hl, "conv": tail}, {}
     h, (k, v) = attn.attention_sequence(
         params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), positions,
         cfg, local=kind == "local_attn", causal=causal,
@@ -164,13 +179,14 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
         cache = {"self": {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}}
     else:
         cache = {"self": {"k": k, "v": v}}
-    h = mlp_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
-                  cfg.act)
-    return x + h, cache
+    h, aux = _ffn_apply(params["ffn"],
+                        rms_norm(x, params["ln2"], cfg.norm_eps), cfg, ep)
+    return x + h, cache, aux
 
 
 def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
-                     cache: dict, cache_len: int, cfg: ModelConfig, kind: str
+                     cache: dict, cache_len: int, cfg: ModelConfig, kind: str,
+                     ep: EPContext = EPContext()
                      ) -> tuple[torch.Tensor, dict]:
     """One block for one token (B, 1, D). Returns (x, entry): attention
     writes its K/V row into ``cache`` and returns it; a state block returns
@@ -193,8 +209,8 @@ def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
         cache["self"], cache_len, cfg, local=kind == "local_attn",
     )
     x = x + h
-    h = mlp_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
-                  cfg.act)
+    h, _ = _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
+                      cfg, ep)
     return x + h, cache
 
 
@@ -209,14 +225,42 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
+# the MoE aux losses, summed over the layers
+_MOE_AUX = ("lb", "z")
+
+
+def _sum_aux(acc: dict, new: dict) -> dict:
+    out = dict(acc)
+    for k, v in new.items():
+        out[k] = out.get(k, 0.0) + v
+    return out
+
+
 def _run_layers(x: torch.Tensor, run: list, positions: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, list]:
-    """One run of :func:`layer_runs` over ``x``: ``(x, cache entries)``."""
-    entries = []
+                cfg: ModelConfig, ep: EPContext
+                ) -> tuple[torch.Tensor, list, dict]:
+    """One run of :func:`layer_runs` over ``x``: ``(x, cache entries, aux
+    summed over the run)``."""
+    entries, aux = [], {}
     for kind, layer, _ in run:
-        x, entry = block_apply_seq(layer, x, positions, cfg, kind)
+        x, entry, a = block_apply_seq(layer, x, positions, cfg, kind, ep)
         entries.append(entry)
-    return x, entries
+        aux = _sum_aux(aux, a)
+    return x, entries, aux
+
+
+def _run_checkpointed(x: torch.Tensor, run: list, positions: torch.Tensor,
+                      cfg: ModelConfig, ep: EPContext
+                      ) -> tuple[torch.Tensor, dict]:
+    """:func:`_run_layers` under a checkpoint (its activations recomputed
+    in the backward); the aux losses leave it beside ``x``."""
+
+    def body(x, run):
+        x, _, aux = _run_layers(x, run, positions, cfg, ep)
+        return (x, *(aux[k] for k in sorted(aux)))
+
+    x, *values = checkpoint(body, x, run, use_reentrant=False)
+    return x, dict(zip(sorted(_MOE_AUX if cfg.is_moe else ()), values))
 
 
 def decoder_apply(
@@ -224,22 +268,28 @@ def decoder_apply(
     tokens: torch.Tensor,        # (B, S) int
     positions: torch.Tensor,     # (B, S) or (3, B, S)
     cfg: ModelConfig,
+    ep: EPContext = EPContext(),
     *,
     want_cache: bool = False,
     last_only: bool = False,
-) -> tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (logits (B, S, V), cache-or-None). ``last_only`` applies the
-    final norm, head and softcap to the last position alone and returns
-    (B, 1, V): the same values as the full logits' last row, since each
-    position's norm and head are its own. With gradients on and no cache
-    asked for (the loss) and ``cfg.remat == "block"``, each repetition of
-    the pattern runs under a checkpoint."""
+) -> tuple[torch.Tensor, dict, Optional[Cache]]:
+    """Returns (logits (B, S, V), aux losses, cache-or-None): the aux
+    losses are the MoE layers' ``lb`` and ``z`` summed over the layers (the
+    reference's pre-declared float32 zeros when no layer adds to them), {}
+    for the other archs. ``last_only`` applies the final norm, head and
+    softcap to the last position alone and returns (B, 1, V): the same
+    values as the full logits' last row, since each position's norm and
+    head are its own. With gradients on and no cache asked for (the loss)
+    and ``cfg.remat == "block"``, each repetition of the pattern runs under
+    a checkpoint."""
     if cfg.remat not in ("block", "none"):
         raise NotImplementedError(
             f"remat={cfg.remat!r}: the port has 'block' and 'none'")
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and not want_cache)
     x = embed_lookup(params["embed"], tokens, cfg.d_model)
+    aux: dict = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+                 for k in (_MOE_AUX if cfg.is_moe else ())}
     cache: dict = {
         "groups": {str(i): [] for i in range(len(cfg.block_pattern))},
         "tail": {},
@@ -247,11 +297,11 @@ def decoder_apply(
     for run in layer_runs(params, cfg):
         _, _, (section, _, _) = run[0]
         if remat and section == "groups":
-            x = checkpoint(lambda x, run: _run_layers(x, run, positions,
-                                                      cfg)[0],
-                           x, run, use_reentrant=False)
+            x, a = _run_checkpointed(x, run, positions, cfg, ep)
+            aux = _sum_aux(aux, a)
             continue
-        x, entries = _run_layers(x, run, positions, cfg)
+        x, entries, a = _run_layers(x, run, positions, cfg, ep)
+        aux = _sum_aux(aux, a)
         if not want_cache:
             continue
         for (_, _, (section, i, g)), entry in zip(run, entries):
@@ -261,7 +311,7 @@ def decoder_apply(
                 cache[section][i].append(entry)
     if last_only:
         x = x[:, -1:]
-    return _head(params, x, cfg), (cache if want_cache else None)
+    return _head(params, x, cfg), aux, (cache if want_cache else None)
 
 
 def decode_step(
@@ -271,6 +321,7 @@ def decode_step(
     cache: Cache,
     cache_len: int,              # valid rows incl. this token
     cfg: ModelConfig,
+    ep: EPContext = EPContext(),
 ) -> tuple[torch.Tensor, Cache]:
     """One token through all layers. Returns (logits (B, 1, V), cache),
     the cache dict updated in place: attention entries at row ``cache_len -
@@ -279,7 +330,7 @@ def decode_step(
     for kind, layer, where in layers_in_order(params, cfg):
         entry = _entry(cache, where)
         x, new = block_apply_step(layer, x, position, entry, cache_len, cfg,
-                                  kind)
+                                  kind, ep)
         entry.update(new)
     return _head(params, x, cfg), cache
 

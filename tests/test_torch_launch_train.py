@@ -72,3 +72,21 @@ def test_launch_serve_ckpt_dir_serves_the_reference_tokens(tmp_path, capsys):
     assert len(outs) == len(want) == 3
     for got, w in zip(outs, want):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(w))
+
+
+def test_launch_train_moe_arch(tmp_path, capsys):
+    """dbrx at ``.reduce()``: the MoE layers' router losses join the loss;
+    the checkpoint it writes (experts' ``(E, D, F)`` leaves stacked as the
+    reference's ``(L, E, D, F)``) serves."""
+    ckpt = str(tmp_path / "moe")
+    launch_train.main([
+        "--arch", "dbrx_132b", "--steps", "6", "--global-batch", "4",
+        "--seq-len", "32", "--ckpt-dir", ckpt, "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "done step=6 restarts=0" in out
+    launch_serve.main(["--arch", "dbrx_132b", "--ckpt-dir", ckpt,
+                       "--device", "cpu", "--requests", "2",
+                       "--prompt-len", "8", "--new-tokens", "3",
+                       "--slots", "2"])
+    assert f"restored from {ckpt}" in capsys.readouterr().out

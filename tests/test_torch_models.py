@@ -7,8 +7,14 @@ float32; whole-model logits (forward, prefill, teacher-forced decode) at
 the reference's own decode band, ``atol=3e-4, rtol=1e-3``
 (``tests/test_decode_equivalence.py``). On the CPU the sequence attention,
 the SSD mixer and the RG-LRU scan take the plain versions of K4, K5 and
-K6.
+K6. The MoE archs' decode (``B`` tokens a step) and forward (``B·S``)
+route with different capacities, so their decode is held to the forward
+with the capacity raised until no token drops; at the published one both
+are held to the reference.
 """
+
+import dataclasses
+
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +39,11 @@ from repro_torch.models.model import default_positions as port_positions
 DENSE = ["gemma2_2b", "granite_3_2b", "qwen3_8b", "chatglm3_6b", "qwen2_vl_7b"]
 # the state-space families: RG-LRU with local attention, and Mamba-2 SSD
 STATE = ["recurrentgemma_2b", "mamba2_1_3b"]
-SERVED = DENSE + STATE
-NOT_PORTED = ["dbrx_132b", "arctic_480b", "seamless_m4t_medium"]
+# the mixture-of-experts archs (dbrx: 16 experts top 4; arctic: 128 top 2
+# with a dense residual), reduced to 4 experts top 2
+MOE = ["dbrx_132b", "arctic_480b"]
+SERVED = DENSE + STATE + MOE
+NOT_PORTED = ["seamless_m4t_medium"]
 LAYER_TOL = dict(atol=1e-6, rtol=1e-6)
 DECODE_TOL = dict(atol=3e-4, rtol=1e-3)
 RNG = np.random.default_rng(0)
@@ -141,6 +150,55 @@ def test_init_params_follows_the_reference_rule():
     assert torch.equal(g["attn"]["wq"], again["groups"]["0"]["attn"]["wq"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_draws_the_init_rule_into_the_modules(dtype):
+    """``bundle.init`` draws leaf by leaf into the skeleton; its tensors
+    are those of the tree rule (``init_params`` then ``load_tree``) bit
+    for bit, at a reduced gemma2 as at every leaf of the dense and state
+    archs, each below ``DRAW_SLICE_ELEMENTS``."""
+    from repro_torch.models.convert import load_tree
+
+    cfg = port_config("gemma2_2b").reduce(param_dtype=dtype)
+    pb = build_model(cfg, "cpu")
+    got = pb.init(torch.Generator().manual_seed(5))
+    want = load_tree(pb.skeleton(), tl.init_params(
+        pb.specs, torch.Generator().manual_seed(5), getattr(torch, dtype),
+        "cpu"))
+    for (name, a), (_, b) in zip(got.named_parameters(),
+                                 want.named_parameters()):
+        assert a.dtype == getattr(torch, dtype)
+        assert torch.equal(a, b), name
+
+
+def test_init_draws_a_large_leaf_a_slice_at_a_time(monkeypatch):
+    """A leaf above ``DRAW_SLICE_ELEMENTS`` is drawn one leading-axis slice
+    at a time, recursively (a layer, then an expert), in order: the
+    experts of a reduced dbrx with the threshold cut to one expert's
+    matrix are the consecutive draws of ``(d, F)`` normals."""
+    cfg = port_config("dbrx_132b").reduce()
+    d, f, e, n = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.group_count
+    monkeypatch.setattr(tl, "DRAW_SLICE_ELEMENTS", d * f)
+    pb = build_model(cfg, "cpu")
+    got = pb.init(torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(5)
+
+    def replay(shape):
+        if int(np.prod(shape)) > d * f and len(shape) > 1:
+            return torch.stack([replay(shape[1:]) for _ in range(shape[0])])
+        return torch.randn(shape, generator=gen)
+
+    for path, spec in tl.spec_leaves(pb.specs):
+        if path == "groups/0/ffn/w_gate":
+            break
+        if spec.init not in ("zeros", "ones"):
+            replay(spec.shape)
+    std = 1 / np.sqrt(d)
+    for g in range(n):
+        for x in range(e):
+            want = torch.randn((d, f), generator=gen) * std
+            assert torch.equal(got.groups["0"][g].ffn.w_gate[x], want)
+
+
 # --------------------------------------------------------------------------- models
 
 
@@ -178,6 +236,17 @@ def test_params_from_jax_consumes_every_leaf(arch, pair):
         for g in range(cfg.group_count):
             np.testing.assert_array_equal(
                 model.groups["0"][g][mixer][name].numpy(), stacked[g])
+    if cfg.is_moe:
+        # the (L, E, D, F) expert leaves, the router and arctic's dense
+        # residual, split layer by layer
+        ffn = jax.tree_util.tree_flatten_with_path(params["groups"]["0"]["ffn"])[0]
+        assert len(ffn) == (7 if cfg.moe_dense_residual else 4)
+        for path, leaf in ffn:
+            for g in range(cfg.group_count):
+                got = model.groups["0"][g]["ffn"]
+                for p in path:
+                    got = got[p.key]
+                np.testing.assert_array_equal(got.numpy(), np.asarray(leaf)[g])
     for i in range(len(cfg.tail_pattern)):
         np.testing.assert_array_equal(
             model.tail[str(i)]["ln1"].numpy(),
@@ -232,8 +301,45 @@ def test_forward_prefill_and_decode_match_the_reference(arch, pair):
                                  port_positions(cfg, b, 1, offset=i), cache,
                                  i + 1)
         np.testing.assert_allclose(_np(lg), _np(jlg), **DECODE_TOL)
-        np.testing.assert_allclose(_np(lg)[:, 0], _np(full)[:, i],
-                                   **DECODE_TOL)
+        if not cfg.is_moe:
+            np.testing.assert_allclose(_np(lg)[:, 0], _np(full)[:, i],
+                                       **DECODE_TOL)
+    if cfg.is_moe:
+        _moe_decode_matches_the_forward_without_drops(pb, model, toks, pre)
+
+
+def _moe_decode_matches_the_forward_without_drops(pb, model, toks, pre):
+    """The teacher-forced decode against the forward pass with the
+    capacity at ``E / k`` (one slot an expert for every token, so no
+    token drops in either), every routing counted."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(pb.cfg, capacity_factor=pb.cfg.num_experts
+                              / pb.cfg.top_k)
+    bundle = build_model(cfg, "cpu")
+    b, s = toks.shape
+    kept = []
+    route = moe._route
+
+    def counted(*args):
+        r = route(*args)
+        kept.append(bool(r.keep.all()))
+        return r
+
+    moe._route = counted
+    try:
+        full = bundle.forward_fn(model, {"tokens": _t(toks)})
+        _, cache = bundle.prefill_fn(model, {"tokens": _t(toks[:, :pre])})
+        cache = port_tf.pad_cache_to(cache, cfg, s + 2)
+        for i in range(pre, s):
+            lg, cache = bundle.decode_fn(model, _t(toks[:, i:i + 1]),
+                                         port_positions(cfg, b, 1, offset=i),
+                                         cache, i + 1)
+            np.testing.assert_allclose(_np(lg)[:, 0], _np(full)[:, i],
+                                       **DECODE_TOL)
+    finally:
+        moe._route = route
+    assert kept and all(kept)
 
 
 def test_decode_writes_the_cache_in_place(pair):
@@ -385,7 +491,7 @@ def test_build_model_needs_cuda_unless_told_cpu():
         build_model(port_config("gemma2_2b").reduce())
 
 
-@pytest.mark.parametrize("arch", STATE)
+@pytest.mark.parametrize("arch", STATE + MOE)
 def test_state_archs_need_cuda_unless_told_cpu(arch):
     """At full width, as a user builds them: the card by default."""
     if torch.cuda.is_available():

@@ -2,8 +2,10 @@
 ``tests/test_serve.py`` (greedy determinism, batch-order invariance,
 ``serve_queue`` equal to ``generate``, temperature seeds that differ), and
 greedy tokens equal to the reference engine's on the same parameters, for
-a dense arch and for the two state-space families (RG-LRU with local
-attention, Mamba-2 SSD), whose caches carry a recurrent state.
+a dense arch, for the two state-space families (RG-LRU with local
+attention, Mamba-2 SSD), whose caches carry a recurrent state, and for the
+two MoE archs. Batch-order invariance is not asked of the MoE archs: the
+experts' capacity couples a batch's rows, in the reference too.
 """
 
 import jax
@@ -12,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+import repro.models.transformer as jax_tf
 from repro.configs import get_config as jax_config
 from repro.models import build_model as jax_build
+from repro.models.model import default_positions as jax_positions
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
@@ -23,6 +27,7 @@ from repro_torch.serve import ServeConfig, ServeEngine
 
 ARCH = "granite_3_2b"
 STATE = ["recurrentgemma_2b", "mamba2_1_3b"]
+MOE = ["dbrx_132b", "arctic_480b"]
 # the reference's decode band (tests/test_decode_equivalence.py)
 ATOL, RTOL = 3e-4, 1e-3
 
@@ -137,6 +142,42 @@ def test_greedy_tokens_of_the_state_archs_equal_the_reference_engine(arch):
     _greedy_against_the_reference(jb, params, pb, model, prompts, new=6)
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_greedy_tokens_of_the_moe_archs_equal_the_reference_engine(arch):
+    """The margin is read on the reference's own prefill and teacher-forced
+    decode logits, which route as the engine does (the forward pass over
+    prompt and tokens routes ``B·S`` tokens at a time, with another
+    capacity, so it may drop other pairs)."""
+    jb = jax_build(jax_config(arch).reduce())
+    params = jb.init(jax.random.key(0))
+    pb = build_model(get_config(arch).reduce(), "cpu")
+    model = params_from_jax(jax.tree.map(np.asarray, params), pb.skeleton())
+    prompts = np.random.default_rng(2).integers(
+        0, pb.cfg.vocab_size, (2, 45)).astype(np.int32)
+    new = 6
+    want = JaxServeEngine(jb, params, JaxServeConfig(
+        max_new_tokens=new)).generate(prompts)
+    got = ServeEngine(pb, model, ServeConfig(max_new_tokens=new)).generate(
+        prompts)
+    b, s = prompts.shape
+    logits, cache = jb.prefill_fn(params, {"tokens": jnp.asarray(prompts)})
+    cache = jax_tf.pad_cache_to(cache, jb.cfg, s + new)
+    steps = [np.asarray(logits[:, 0])]
+    for i in range(new - 1):
+        logits, cache = jb.decode_fn(
+            params, jnp.asarray(want[:, i:i + 1]),
+            jax_positions(jb.cfg, b, 1, offset=s + i), cache,
+            jnp.int32(s + i + 1))
+        steps.append(np.asarray(logits[:, 0]))
+    steps = np.stack(steps, axis=1)                      # (B, new, V)
+    top2 = np.sort(steps, axis=-1)[..., -2:]
+    band = 2 * (ATOL + RTOL * np.abs(top2[..., 1]))
+    assert (top2[..., 1] - top2[..., 0] > band).all(), \
+        float((top2[..., 1] - top2[..., 0] - band).min())
+    np.testing.assert_array_equal(steps.argmax(-1), want)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_engine_refuses_parameters_on_another_device(models):
     _, _, pb, model = models
     if torch.cuda.is_available():
@@ -163,11 +204,22 @@ def test_launch_serve_state_archs_on_the_cpu(arch, capsys):
     assert "[launch.serve] 3 reqs x 3 new tokens" in out and "on cpu" in out
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_launch_serve_moe_archs_on_the_cpu(arch, capsys):
+    outs = launch_serve.main(["--arch", arch, "--device", "cpu",
+                              "--requests", "3", "--prompt-len", "12",
+                              "--new-tokens", "3", "--slots", "2"])
+    out = capsys.readouterr().out
+    assert "[launch.serve] 3 reqs x 3 new tokens" in out and "on cpu" in out
+    assert len(outs) == 3 and all(o.shape == (3,) for o in outs)
+
+
 def test_launch_serve_refuses_what_waits():
-    """The MoE archs wait for their port; ``--ckpt-dir`` (ported) refuses a
-    directory that holds no checkpoint."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        launch_serve.main(["--device", "cpu", "--arch", "dbrx_132b"])
+    """seamless (the encoder) waits for its port; ``--ckpt-dir`` (ported)
+    refuses a directory that holds no checkpoint."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        launch_serve.main(["--device", "cpu", "--arch",
+                           "seamless_m4t_medium"])
     with pytest.raises(FileNotFoundError, match="no checkpoints under"):
         launch_serve.main(["--device", "cpu", "--ckpt-dir", "nowhere"])
     if not torch.cuda.is_available():
