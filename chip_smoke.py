@@ -46,8 +46,10 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    float32 SIMT kernel's: the arithmetic of the bf16 design it replaced.
    Then K4b (its backward) against ``attention_bwd_ref`` at gemma2's
    training shape (B 4, Hq 8, Hkv 4, S 2048, d 256, causal, softcap
-   50), recurrentgemma's (B 2, Hq 10, Hkv 1, S 4608, window 2048) and
-   dbrx's (B 2, Hq 48, Hkv 8, S 2048, d 128, causal), in float32 (the
+   50), recurrentgemma's (B 2, Hq 10, Hkv 1, S 4608, window 2048),
+   dbrx's (B 2, Hq 48, Hkv 8, S 2048, d 128, causal) and seamless's two,
+   non-causal at d 64 (its encoder, B 2, H 16, S 2048; its cross
+   attention, 512 queries over 2,048 keys), in float32 (the
    SIMT kernels) and bfloat16 (the tensor cores, P and dS split in two
    bf16 terms), per gradient in relative L2, two calls bit-identical,
    each launch's route as its dtype's; in float32 the controls (no
@@ -58,13 +60,21 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    the SIMT kernels it replaced (which it must beat), the backward of
    ``scaled_dot_product_attention`` (softcap 0) and the plain version
    timed in turns, beside the bound (10 d a live pair at the bf16
-   tensor-core rate) and the route's executed TFLOP/s (20 d a pair).
+   tensor-core rate) and the route's executed TFLOP/s (20 d a pair), and
+   at seamless's two shapes the route, SDPA's backward and the plain
+   version timed in turns beside the bound.
    Then K4 at the MoE prefill shapes (head dim 128, causal, no softcap:
    q (4, 48, 2048, 128) over k/v (4, 8, 2048, 128), dbrx's, and q (4, 56,
    2048, 128), arctic's), bfloat16, to one unit and within the relative
    L2 band that the bf16-probability control must miss, timed beside the
    plain version, ``scaled_dot_product_attention`` (the same function
-   here) and the bound;
+   here) and the bound; and at seamless's prefill shapes, non-causal at
+   d 64 (the encoder's q/k/v (4, 16, 4096, 64); the cross attention's q
+   (4, 16, 512, 64) over k/v of 4,096 and of 4,000 source frames), in
+   float32 and bfloat16, to one unit and within the relative L2 band
+   that the bf16-probability control must miss, each launch on its
+   dtype's route, timed in bfloat16 beside the plain version, SDPA and
+   the bound;
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
    state (also through the public ``ops.ssd_mixer``) and a ragged
@@ -175,7 +185,7 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     float32 rounding leaves); and K6's gradient at its serving shape
     with an initial state, bit-exact with the plain scan run backwards,
     against a control that drops dh0;
-15. crash and restart: gemma2_2b at full width and 4 layers, 6 steps with
+15. crash and restart: gemma2_2b at full width and 2 layers, 6 steps with
     a checkpoint every 2 and a crash at step 3 under ``run_with_restarts``,
     must end bit-identical to an uninterrupted run; its last checkpoint
     through ``checkpoint_metainfo`` and ``restore_from_bundle`` must come
@@ -215,14 +225,46 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     byte-level corpus (bfloat16 moments, remat, one microbatch): the loss
     falling, ``moe_lb`` and ``moe_z`` finite, K4 2 and K4b 1 launches a
     step on the tensor cores, seconds a step and peak memory logged;
-20. K4's, K4b's and K5's route checks: every bfloat16 launch of K4, K4b
+20. the encoder-decoder serving path: the full-width, full-depth
+    ``seamless_m4t_medium`` (12 encoder and 12 decoder layers, 614.7M
+    bfloat16 parameters from seed 22) through ``build_model`` and two
+    ``ServeEngine.generate(prompts, src_embeds)`` calls of 4 requests,
+    each a 4,096-frame source drawn from the seed (the frontend is a
+    stub) and a 512-token prompt, 16 greedy new tokens: K4 36 times a
+    prefill (encoder non-causal, decoder self causal, cross non-causal
+    with 512 queries over 4,096 keys), 72 in all, every launch bfloat16
+    on the tensor cores; the same tokens twice and the replayed decode;
+    the attention's sharpness at the first encoder, decoder-self and
+    cross layers logged (the seeded attention is one-hot, so a last-bit
+    difference grows to O(1) within a few blocks: the bfloat16 depth is
+    held block by block, each block fed the plain run's input and
+    memory, within bands, the encoder's and the decoder's, that the
+    bf16-probability control must miss); then, drawn in float32 at 1 + 1
+    layers, the prefill logits through K4 against the plain attention
+    within a band that the encoder run causal, the memory zeroed and the
+    bf16-probability control must miss, and the teacher-forced decode
+    against the forward pass within a band that the cross cache zeroed at
+    the hand-off must miss;
+21. the encoder-decoder training path: the full-width, full-depth
+    seamless (every query projection scaled by 1/8: at the seeded scale
+    the one-hot attention makes the encoder's gradients so large that
+    clipping stalls the loss; the two gradient norms are logged) trained 3
+    steps through ``make_train_step``
+    on one fixed batch of 4 x (2,048 source frames, 512 byte-level
+    tokens), 2 microbatches, remat, bfloat16 moments: the loss finite and
+    falling every step, K4 432 and K4b 216 launches on the tensor cores;
+    then float32 gradients at 2 + 2 layers (the same scaling) through the
+    kernels against their plain versions, within a band that K4b with
+    delta zero and K4b on bf16-rounded operands must miss, every encoder
+    leaf's gradient non-zero;
+22. K4's, K4b's and K5's route checks: every bfloat16 launch of K4, K4b
     and K5 in the whole run must have taken the tensor-core route and
     every float32 launch the SIMT one, as the launch that ran reports its
     route (each wrapper counts launches by dtype and route), and each
     path's launches by route must add up to its count; the SIMT backward
     that K4b's tensor-core route replaced must have no launch outside its
     timing in phase 5;
-21. one JSON line of per-kernel numbers (K4's with its MoE-shape
+23. one JSON line of per-kernel numbers (K4's with its MoE-shape
     readings), then the last line ``{"ok": true, "device": {...}}``.
 
 The parameter count of every serving path is checked against the
@@ -397,21 +439,29 @@ TRAIN_CONFIG = dict(learning_rate=1e-4, warmup_steps=1, total_steps=8,
                     microbatches=2, opt_state_dtype="bfloat16",
                     seed=TRAIN_SEED)
 TRAIN_SERVE = (4, 256, 8)
-# crash and restart: gemma2_2b at full width and 2 groups, 6 steps of 4 x
-# 512 tokens, a checkpoint every 2 steps, the crash at step 3
-CRASH = dict(layers=4, batch=4, seq=512, steps=6, every=2, at=3)
-# K4b against its plain version: gemma2's training shape (b, hq, hkv, s, d;
-# causal, softcap 50), recurrentgemma's (window 2048) and dbrx's (head dim
-# 128, 48 query heads over 8, no softcap), relative L2 per
-# gradient: float32 (the SIMT kernels) about 8x the largest H100 reading
+# crash and restart: gemma2_2b at full width and 1 group (2 layers: one
+# local, one global; cut from 4 to keep the whole script near its earlier
+# wall beside the encoder-decoder phases), 6 steps of 4 x 512 tokens, a
+# checkpoint every 2 steps, the crash at step 3
+CRASH = dict(layers=2, batch=4, seq=512, steps=6, every=2, at=3)
+# K4b against its plain version: gemma2's training shape ((b, hq, hkv, sq,
+# skv, d), causal, window, softcap: causal, softcap 50), recurrentgemma's
+# (window 2048), dbrx's (head dim 128, 48 query heads over 8, no softcap)
+# and seamless's two, non-causal (its encoder, Sq = Skv = 2,048, and its
+# cross attention, 512 decoder queries over 2,048 source keys), relative
+# L2 per gradient: float32 (the SIMT kernels) about 8x the largest H100 reading
 # (1.2e-6, q scaled by 8; the controls read 0.25 and more there); bfloat16
 # set when both dtypes ran the SIMT kernels (3.0e-5 read), which the
 # tensor-core route (P and dS split in two bf16 terms, about 1e-4 in plain
 # torch, ``attention_bwd_rounded_ref``) must hold and the unsplit control
 # (bf16 P and dS, 2.5e-3) must miss
-K4B_CASES = [((4, 8, 4, 2048, 256), 0, 50.0), ((2, 10, 1, 4608, 256), 2048,
-                                                0.0),
-             ((2, 48, 8, 2048, 128), 0, 0.0)]
+K4B_CASES = [((4, 8, 4, 2048, 2048, 256), True, 0, 50.0),
+             ((2, 10, 1, 4608, 4608, 256), True, 2048, 0.0),
+             ((2, 48, 8, 2048, 2048, 128), True, 0, 0.0),
+             ((2, 16, 16, 2048, 2048, 64), False, 0, 0.0),
+             ((2, 16, 16, 512, 2048, 64), False, 0, 0.0)]
+# the seamless cases of K4B_CASES, timed beside SDPA's backward
+K4B_SEAMLESS = {"encoder": 3, "cross": 4}
 K4B_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-4}
 # operations K4b's tensor-core route executes against its bound's 10 d a
 # live pair: S and dP in both kernels, and dV, dK and dQ on P or dS split in
@@ -483,9 +533,64 @@ MOE_TRAIN_ARCH = "dbrx_132b"
 MOE_TRAIN_STEPS = 3
 MOE_TRAIN_BATCH = 2
 MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG, microbatches=1, seed=MOE_SEED)
+# the encoder-decoder paths: full-width seamless_m4t_medium (12 encoder and
+# 12 decoder layers, d 1,024, 16 heads of 64, 256,206 tokens, tied) from
+# seed 22. Serving: 8 requests in two ``generate(prompts, src_embeds)``
+# calls of 4, each a 4,096-frame source (frame embeddings drawn from the
+# seed: the frontend is a stub) and a 512-token prompt, 16 greedy new
+# tokens; K4 36 times a prefill (12 encoder, 12 decoder self and 12 cross
+# layers). The seeded attention is one-hot (score std 64 in all 36 layers:
+# the init rule's fan-in of wq is the 16 query heads), so a last-bit
+# difference grows to O(1) within five encoder blocks (chained bf16 blocks
+# read 2.6e-4, 8.0e-3, 6.0e-2, 0.24, 0.50 ... 1.38) and float32 end to end
+# is held at 1 + 1 layers (``deeper``: the 2 + 2 reading, logged, is already
+# two orders of magnitude up). ``block_band``: each bfloat16 block, fed the
+# plain run's input and memory, through K4 against the plain attention,
+# which the bf16-probability control must miss (encoder blocks 2.6e-4-4.6e-4
+# / control 2.35e-3-4.2e-3; decoder blocks, self and cross attention,
+# 2.4e-3-2.8e-3 / 1.40e-2-1.96e-2); ``f32``: drawn in float32 at 1 + 1
+# layers, the prefill logits through K4 against the plain attention
+# (``logits_band``: 6.1e-6 / bf16-probability control 7.5e-3, memory zeroed
+# 0.74, encoder causal 0.93) and the teacher-forced decode against the
+# forward pass (``decode_band``: at most 1.2e-4 / the cross cache zeroed
+# 0.70 at least). Each band near the geometric mean of the largest H100
+# reading and the nearest control (PERF.md)
+ENCDEC_ARCH = "seamless_m4t_medium"
+ENCDEC_SEED = 22
+ENCDEC_SERVING = dict(requests=8, batch=4, source=4096, prompt=512, new=16,
+                      block_band={"encoder": 1e-3, "decoder": 6e-3},
+                      f32=dict(encoder_layers=1, layers=1,
+                               logits_band=2e-4, decode_band=8e-3,
+                               deeper=(2, 2)))
+# training: 3 steps of one fixed batch of 4 x (2,048 source frames, 512
+# target tokens of the byte-level corpus) through ``make_train_step`` (the
+# ``Trainer``'s pipeline carries no source, in the reference too), 2
+# microbatches, remat, bfloat16 moments, no checkpoint, every query
+# projection scaled by ``wq_scale`` (score std 8): at the seeded scale the
+# one-hot attention makes the encoder's gradients grow with depth until
+# their global norm is many orders of magnitude above the scaled model's
+# (both logged), so clipping to norm 1 leaves every other gradient under
+# Adam's epsilon and the loss does not fall. Then float32 gradients at 2 + 2
+# layers (full width, 1 x (2,048, 512), the same scaling) through the
+# kernels against their plain versions, worst leaf in relative L2 within
+# ``band``, about 5x the H100 reading (1.06e-4; the plain version's backward
+# on operands one ulp apart moves it 5.4e-6), which K4b on bf16-rounded
+# operands (5.3e-2) and with delta zero (111) must miss
+ENCDEC_TRAIN = dict(batch=4, source=2048, target=512, steps=3,
+                    wq_scale=0.125)
+ENCDEC_TRAIN_CONFIG = dict(TRAIN_CONFIG, seed=ENCDEC_SEED)
+ENCDEC_GRAD = dict(encoder_layers=2, layers=2, batch=1, source=2048,
+                   target=512, band=5e-4, wq_scale=0.125)
 # K4 at the MoE prefill shapes (b, s, hq, hkv, d): causal, no softcap
 K4_MOE = {"dbrx_132b": (4, MOE_PROMPT, 48, 8, 128),
           "arctic_480b": (4, MOE_PROMPT, 56, 8, 128)}
+# K4 at seamless's prefill shapes, non-causal, no softcap: name -> (b, hq,
+# hkv, sq, skv, d): the encoder's self attention over a 4,096-frame source
+# and the cross attention, 512 decoder queries over a source of 4,096 and
+# of 4,000 frames (no multiple of the kv tile)
+K4_SEAMLESS = {"encoder": (4, 16, 16, 4096, 4096, 64),
+               "cross": (4, 16, 16, 512, 4096, 64),
+               "cross, ragged source": (4, 16, 16, 512, 4000, 64)}
 # the checkpoint bundle: 2**33 bytes, a bf16 checkpoint of ~4.3B parameters
 BUNDLE_BYTES = 1 << 33
 BUNDLE_SEED = 12
@@ -1439,14 +1544,14 @@ def check_ptxas(what: str, report: str, kernels: dict) -> dict:
     return found
 
 
-def k4_bound(q, k, *, window):
-    """K4's bound at a causal prefill of bf16 q (B, Hq, S, d) and k/v (B,
-    Hkv, S, d): q, k, v read once and the output written once; 4·d
-    operations per live (q, k) pair and query head (q·k and p·v), at the
-    bf16 tensor-core rate. Returns (ms, bound_by, operations)."""
-    b, hq, s, d = q.shape
+def k4_bound(q, k, *, window, causal=True):
+    """K4's bound at bf16 q (B, Hq, Sq, d) and k/v (B, Hkv, Skv, d): q, k,
+    v read once and the output written once; 4·d operations per live (q,
+    k) pair and query head (q·k and p·v), at the bf16 tensor-core rate.
+    Returns (ms, bound_by, operations)."""
+    b, hq, sq, d = q.shape
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * b * hq * d * live_pairs(s, s, True, window)
+    flops = 4 * b * hq * d * live_pairs(sq, k.shape[2], causal, window)
     return (*bound(nbytes, flops, BF16_TENSOR_OPS_PER_S), flops)
 
 
@@ -1693,6 +1798,87 @@ def check_k4_moe_shapes(k4, dev):
             "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
             "gflop": flops / 1e9}
         del q, k, v
+    return out
+
+
+def check_k4_seamless_shapes(k4, dev):
+    """K4 at seamless's prefill shapes (``K4_SEAMLESS``: non-causal, the
+    query length the key length or the decoder's against the source's,
+    head dim 64, no softcap) in float32 and bfloat16 against its plain
+    version, to one unit (``K4_TOL``) and within ``K4_REL_L2``, which the
+    bf16-probability control must miss; each bfloat16 shape timed beside
+    the plain version, ``scaled_dot_product_attention`` (the same function
+    here: no mask, no softcap) and the bound. Returns {name: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(ENCDEC_SEED)
+    out = {}
+    for name, (b, hq, hkv, sq, skv, d) in K4_SEAMLESS.items():
+        kw = dict(causal=False, window=0, softcap=0.0)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            atol, rtol = K4_TOL[dt]
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                     (b, hkv, skv, d)))
+            what = (f"K4 at seamless's {name} shape q {(b, hq, sq, d)} k/v "
+                    f"{(b, hkv, skv, d)} {dt} non-causal")
+            before = collections.Counter(
+                k4.flash_attention_cuda.route_launches)
+            got = k4.flash_attention_cuda(q, k, v, **kw)
+            route = by_route(collections.Counter(
+                k4.flash_attention_cuda.route_launches) - before)
+            want = k4.attention_bhsd_ref(q, k, v, **kw)
+            got32, want32 = got.to(torch.float32), want.to(torch.float32)
+            err = float((got32 - want32).abs().max())
+            bad = ~torch.isclose(got32, want32, atol=atol, rtol=rtol)
+            rel = rel_l2(got, want)
+            control = rel_l2(attention_bf16_probs(q, k, v, **kw), want)
+            del got32, want32
+            log(f"{what}: {route}; max |diff| {err:.3g} within atol "
+                f"{atol:.3g} rtol {rtol:.3g} ({int(bad.sum())} outside); "
+                f"relative L2 {rel:.4g} (band {K4_REL_L2:.4g}); the "
+                f"bf16-probability control reads {control:.4g}")
+            if route != {f"{dt}/{DTYPE_ROUTE[dt]}": 1}:
+                fail(f"{what}: launched {route}")
+            if not torch.isfinite(got).all() or bool(bad.any()):
+                fail(f"{what}: {int(bad.sum())} values outside one unit of "
+                     f"the plain version (max |diff| {err})")
+            if rel > K4_REL_L2 or control <= K4_REL_L2:
+                fail(f"{what}: relative L2 {rel}, control {control}, band "
+                     f"{K4_REL_L2}")
+            out.setdefault(name, {})[dt] = {
+                "max_abs_err": err, "rel_l2": rel, "control_rel_l2": control}
+            del got, want, bad
+            if dtype == torch.float32:
+                del q, k, v
+                continue
+            ms = median_ms(lambda: k4.flash_attention_cuda(q, k, v, **kw),
+                           reps=10)
+            plain_ms = median_ms(lambda: k4.attention_bhsd_ref(q, k, v, **kw),
+                                 reps=3)
+            ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve), reps=10)
+            del ke, ve
+            bound_ms, bound_by, flops = k4_bound(q, k, window=0, causal=False)
+            log(f"{what}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"scaled_dot_product_attention {library_ms:.3f} ms "
+                f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms "
+                f"({bound_by}; {flops / 1e9:.1f} GFLOP, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
+                f"{100 * bound_ms / ms:.1f} % of the bound)")
+            out[name].update({
+                "shape_q": [b, hq, sq, d], "shape_kv": [b, hkv, skv, d],
+                "causal": False, "softcap": 0.0, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": "scaled_dot_product_attention()",
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+                "gflop": flops / 1e9})
+            del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2048,11 +2234,15 @@ def layer_kinds(cfg) -> list[str]:
 def uncounted_params(cfg) -> int:
     """The parameters that ``ModelConfig.param_count`` leaves out: the norm
     gains (one d_model vector before the head, one before each block's
-    mixer and one before its FFN, which an ssd block lacks), in an ssd
-    block ``d_skip`` and the inner norm's gain (it counts two of the three
+    mixer and one before its FFN, which an ssd block lacks; in an
+    encoder-decoder two in each encoder layer, one after the encoder and
+    one before each decoder layer's cross attention), in an ssd block
+    ``d_skip`` and the inner norm's gain (it counts two of the three
     per-head vectors), and in an MoE block the router (d_model x
     experts)."""
     total = cfg.d_model
+    if cfg.encoder_layers:
+        total += (2 * cfg.encoder_layers + 1 + cfg.num_layers) * cfg.d_model
     for kind in layer_kinds(cfg):
         if kind == "ssd":
             total += cfg.d_model + cfg.ssm_heads + cfg.ssm_d_inner
@@ -2061,11 +2251,13 @@ def uncounted_params(cfg) -> int:
     return total
 
 
-def replay_decode(bundle, params, prompts, tokens, handoff=None):
+def replay_decode(bundle, params, prompts, tokens, handoff=None, extra=None):
     """The engine's decode of one batch again, fed its own tokens:
     ``prompts`` (B, S) and ``tokens`` (B, n) as served; ``handoff``, if
     given, is applied to each state entry of the prefill's cache before the
-    first step. Returns the decode steps' logits (B, n - 1, V) in float32."""
+    first step; ``extra`` holds the prefill batch's other entries (an
+    encoder-decoder's ``src_embeds``). Returns the decode steps' logits (B,
+    n - 1, V) in float32."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -2074,7 +2266,7 @@ def replay_decode(bundle, params, prompts, tokens, handoff=None):
     cfg, dev = bundle.cfg, bundle.device
     b, s = prompts.shape
     n = tokens.shape[1]
-    _, cache = bundle.prefill_fn(params, {"tokens": prompts})
+    _, cache = bundle.prefill_fn(params, {"tokens": prompts, **(extra or {})})
     cache = tf.pad_cache_to(cache, cfg, s + n)
     if handoff is not None:
         entries = [e for section in cache.values() for e in section.values()]
@@ -2711,9 +2903,10 @@ def attention_peak(q, k, **kw) -> dict:
             "off_top_p90": float(off.quantile(0.9))}
 
 
-def attention_sharpness(bundle, params, prompt, kernels):
+def attention_sharpness(bundle, params, prompt, kernels, extra=None):
     """``attention_peak`` of each attention layer in turn, in the forward
-    pass of ``bundle`` through the plain kernels over ``prompt`` (1, S)."""
+    pass of ``bundle`` through the plain kernels over ``prompt`` (1, S)
+    (and ``extra``, the batch's other entries)."""
     k4 = kernels[0]
     stats = []
 
@@ -2722,7 +2915,7 @@ def attention_sharpness(bundle, params, prompt, kernels):
         return k4.attention_bhsd_ref(q, k, v, **kw)
 
     with plain_kernels(*kernels), sequence_attention(probe):
-        bundle.prefill_fn(params, {"tokens": prompt})
+        bundle.prefill_fn(params, {"tokens": prompt, **(extra or {})})
     log(f"serving path: {bundle.cfg.name} {bundle.cfg.param_dtype} "
         "attention, layer by layer: score std " + ", ".join(
             f"{a['score_std']:.4g}" for a in stats) + "; mass off the "
@@ -2794,19 +2987,19 @@ def run_state_serving_path(arch, kernels, counters, device=None):
 # ------------------------------------------------------------------ K4b
 
 
-def k4b_bound(q, k, *, window):
-    """K4b's bound at a causal q (B, Hq, S, d) and k/v (B, Hkv, S, d) of
-    q's dtype: q, k, v, the output, its gradient and lse read once and dq,
+def k4b_bound(q, k, *, window, causal=True):
+    """K4b's bound at q (B, Hq, Sq, d) and k/v (B, Hkv, Skv, d) of q's
+    dtype: q, k, v, the output, its gradient and lse read once and dq,
     dk, dv written once; 10·d operations per live (q, k) pair and query
     head (q·k recomputed, dV, dP, dQ, dK) at the card's peak for the
     operands' type (bf16 on the tensor cores, float32 outside them).
     Returns (ms, bound_by, operations)."""
     import torch
 
-    b, hq, s, d = q.shape
+    b, hq, sq, d = q.shape
     size = q.element_size()
-    nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * s
-    flops = 10 * b * hq * d * live_pairs(s, s, True, window)
+    nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * sq
+    flops = 10 * b * hq * d * live_pairs(sq, k.shape[2], causal, window)
     peak = (BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16
             else F32_OPS_PER_S)
     return (*bound(nbytes, flops, peak), flops)
@@ -2860,7 +3053,8 @@ def attention_bwd_faulty(q, k, v, out, dout, lse, *, fault, **kw):
 def check_k4b(k4, dev):
     """K4b against its plain version on the card at gemma2's training
     shape (causal, softcap 50), recurrentgemma's (one key/value head,
-    window 2048) and dbrx's (``K4B_CASES``), in float32 and bfloat16,
+    window 2048), dbrx's and seamless's two non-causal shapes
+    (``K4B_CASES``), in float32 and bfloat16,
     within ``K4B_REL_L2`` per gradient, bit-identical from one call to the
     next, each launch on its dtype's route (``DTYPE_ROUTE``); the controls
     must fall outside: in float32, those of ``attention_bwd_faulty`` (with
@@ -2872,7 +3066,8 @@ def check_k4b(k4, dev):
     the SIMT kernels it replaced (``flash_attention_bwd_replaced_cuda``,
     which it must beat), ``torch.autograd.grad`` through
     ``scaled_dot_product_attention`` (softcap 0, backward only) and the
-    plain version; returns the kernel's record."""
+    plain version; seamless's shapes are timed by
+    ``k4b_seamless_times``. Returns the kernel's record."""
     import torch
     import torch.nn.functional as F
 
@@ -2883,18 +3078,18 @@ def check_k4b(k4, dev):
         fail(f"K4b: shared memory above {MAX_SHARED_BYTES} bytes: {smem}")
     gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
     worst, worst_abs, routes, readings = {}, 0.0, {}, {}
-    for (b, hq, hkv, s, d), window, cap in K4B_CASES:
+    for (b, hq, hkv, sq, skv, d), causal, window, cap in K4B_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype)[6:]
             for q_scale in ((1.0, 8.0) if dtype == torch.float32 and cap
                             else (1.0,)):
                 q, k, v, do = (
                     torch.randn(shape, generator=gen, device=dev)
-                    for shape in ((b, hq, s, d), (b, hkv, s, d),
-                                  (b, hkv, s, d), (b, hq, s, d)))
+                    for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                  (b, hkv, skv, d), (b, hq, sq, d)))
                 q = (q * q_scale).to(dtype)
                 k, v, do = k.to(dtype), v.to(dtype), do.to(dtype)
-                kw = dict(causal=True, window=window, softcap=cap)
+                kw = dict(causal=causal, window=window, softcap=cap)
                 out, lse = k4.flash_attention_cuda(q, k, v, return_lse=True,
                                                    **kw)
                 before = collections.Counter(
@@ -2906,8 +3101,9 @@ def check_k4b(k4, dev):
                     k4.flash_attention_bwd_cuda.route_launches) - before)
                 want = k4.attention_bwd_ref(q, k, v, out, do, lse, **kw)
                 torch.cuda.synchronize()
-                what = (f"K4b {dt} q {(b, hq, s, d)} k/v {(b, hkv, s, d)} "
-                        f"window {window} softcap {cap} q x {q_scale}")
+                what = (f"K4b {dt} q {(b, hq, sq, d)} k/v {(b, hkv, skv, d)} "
+                        f"causal {causal} window {window} softcap {cap} q x "
+                        f"{q_scale}")
                 if route != {f"{dt}/{DTYPE_ROUTE[dt]}": 2}:
                     fail(f"{what}: two calls launched {route}")
                 routes[what] = route
@@ -2957,7 +3153,8 @@ def check_k4b(k4, dev):
                 del q, k, v, do, out, lse, want
                 torch.cuda.empty_cache()
 
-    (b, hq, hkv, s, d), window, cap = K4B_CASES[0]
+    seamless = k4b_seamless_times(k4, gen)
+    (b, hq, hkv, s, _, d), _, window, cap = K4B_CASES[0]
     q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                    .to(torch.bfloat16)
                    for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
@@ -3028,7 +3225,65 @@ def check_k4b(k4, dev):
         "routes_by_case": routes,
         "readings": readings,
         "shared_memory": smem,
+        "seamless": seamless,
     }
+
+
+def k4b_seamless_times(k4, gen):
+    """K4b at seamless's training shapes (``K4B_SEAMLESS``: the encoder and
+    the cross attention, non-causal, bfloat16), timed in turns beside
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` (the
+    same function: no mask, no softcap; backward only) and the plain
+    version, with the bound (10 d a live pair at the bf16 tensor-core
+    rate). Returns {name: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = gen.device
+    out = {}
+    for name, case in K4B_SEAMLESS.items():
+        (b, hq, hkv, sq, skv, d), causal, window, cap = K4B_CASES[case]
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16)
+                       for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                     (b, hkv, skv, d), (b, hq, sq, d)))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = k4.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (
+            q, k.repeat_interleave(hq // hkv, dim=1),
+            v.repeat_interleave(hq // hkv, dim=1)))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+        times, rounds = in_turns({
+            "tensor_core": lambda: k4.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, **kw),
+            "library": lambda: torch.autograd.grad(
+                lib_out, (qs, ks, vs), do, retain_graph=True),
+            "plain": lambda: k4.attention_bwd_ref(q, k, v, o, do, lse, **kw),
+        }, reps=5)
+        bound_ms, bound_by, flops = k4b_bound(q, k, window=window,
+                                              causal=causal)
+        ms = times["tensor_core"]
+        log(f"K4b at seamless's {name} training shape q {(b, hq, sq, d)} "
+            f"k/v {(b, hkv, skv, d)} bf16 non-causal, timed in turns (each "
+            "round's median " + json.dumps(
+                {n: [round(t, 4) for t in r] for n, r in rounds.items()})
+            + f"): tensor cores {ms:.3f} ms, plain {times['plain']:.3f} ms, "
+            f"scaled_dot_product_attention backward "
+            f"{times['library']:.3f} ms ({ms / times['library']:.2f}x); "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP), "
+            f"{100 * bound_ms / ms:.2f} % of the bound")
+        out[name] = {
+            "shape_q": [b, hq, sq, d], "shape_kv": [b, hkv, skv, d],
+            "causal": causal, "dtype": "bfloat16", "ms": ms,
+            "plain_ms": times["plain"], "library_ms": times["library"],
+            "library": "torch.autograd.grad through "
+                       "scaled_dot_product_attention, backward only",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "gflop": flops / 1e9,
+            "times_in_turns": rounds}
+        del q, k, v, do, o, lse, qs, ks, vs, lib_out
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ training
@@ -4274,6 +4529,598 @@ def run_moe_training_path(counters, device=None, cfg=None, batch=None,
             "metrics": metrics, "launches": launches, "routes": routes,
             "peak_gib": peak / 2**30}
 
+# ------------------------------------------------------------------ encoder-decoder
+
+
+@contextlib.contextmanager
+def encoder_causal():
+    """The control that runs the encoder's self attention causal (the
+    decoder's calls, causal already, are left as they are)."""
+    from repro_torch.models import transformer as tf
+
+    inner = tf.block_apply_seq
+
+    def run(*args, **kw):
+        if kw.get("causal") is False:
+            kw["causal"] = True
+        return inner(*args, **kw)
+
+    with swapped(tf, "block_apply_seq", run):
+        yield
+
+
+@contextlib.contextmanager
+def memory_zeroed():
+    """The control whose encoder hands the decoder a memory of zeros."""
+    from repro_torch.models import transformer as tf
+
+    inner = tf.encoder_apply
+    with swapped(tf, "encoder_apply",
+                 lambda *args, **kw: inner(*args, **kw).zero_()):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_memory(record):
+    """Append the encoder's output to ``record`` each time it runs."""
+    from repro_torch.models import transformer as tf
+
+    inner = tf.encoder_apply
+
+    def run(*args, **kw):
+        out = inner(*args, **kw)
+        record.append(out)
+        return out
+
+    with swapped(tf, "encoder_apply", run):
+        yield
+
+
+def scale_queries(params, factor):
+    """Every attention's query projection (the encoder's and the decoder's
+    self attention, the cross attention) multiplied by ``factor``."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.endswith(("attn.wq", "cross.wq")):
+                p.mul_(factor)
+
+
+def encdec_batches(cfg, gen, spec, dev):
+    """The serving traffic: ``spec["requests"]`` prompts of
+    ``spec["prompt"]`` tokens (numpy, from the seed) and sources of
+    ``spec["source"]`` frame embeddings (float32, drawn on the card), in
+    batches of ``spec["batch"]``: [(prompts, src_embeds)]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(ENCDEC_SEED)
+    n, b = spec["requests"], spec["batch"]
+    prompts = rng.integers(0, cfg.vocab_size, (n, spec["prompt"])).astype(
+        np.int32)
+    src = torch.randn((n, spec["source"], cfg.d_model), generator=gen,
+                      device=dev)
+    return [(prompts[i:i + b], src[i:i + b]) for i in range(0, n, b)]
+
+
+def encdec_blocks_check(bundle, params, tokens, src, kernels, band):
+    """Every block of the model (the encoder's, then the decoder's) fed the
+    input, and the decoder's the memory, that it gets in the prefill
+    through the plain attention, so that no difference carries from one
+    block to the next: its contribution (output minus input) through K4
+    against the plain run's, by relative L2, beside the bf16-probability
+    control and, logged, each block's output in the whole K4 prefill (each
+    block fed the K4 run's own input). ``band`` holds the encoder's and the
+    decoder's blocks apart ({"encoder": band, "decoder": band}). Fails
+    when a reading passes its band or a control does not."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import default_positions
+
+    cfg, dev = bundle.cfg, bundle.device
+    batch = {"tokens": tokens, "src_embeds": src}
+    record, memory, chained = [], [], []
+    with plain_kernels(*kernels), recorded_blocks(record), \
+            recorded_memory(memory):
+        bundle.prefill_fn(params, batch)
+    with recorded_blocks(chained):
+        bundle.prefill_fn(params, batch)
+    chained = [rel_l2(yk, yp) for (_, yk), (_, yp) in zip(chained, record,
+                                                           strict=True)]
+    b, s = tokens.shape
+    s_enc = src.shape[1]
+    enc_pos = torch.arange(s_enc, dtype=torch.int32, device=dev)[None].expand(
+        b, s_enc)
+    dec_pos = default_positions(cfg, b, s, device=dev)
+    layers = ([("encoder", layer) for layer in params["encoder"]["blocks"]]
+              + [(kind, layer) for kind, layer, _ in
+                 tf.layers_in_order(params, cfg)])
+    sound, controls = {"encoder": [], "decoder": []}, {"encoder": [],
+                                                       "decoder": []}
+    for (where, layer), (x, y) in zip(layers, record, strict=True):
+        section = "encoder" if where == "encoder" else "decoder"
+        want = y.to(torch.float32) - x.to(torch.float32)
+
+        def contribution(context):
+            with context():
+                if where == "encoder":
+                    got, _, _ = tf.block_apply_seq(layer, x, enc_pos, cfg,
+                                                   "attn", causal=False)
+                else:
+                    got, _, _ = tf.block_apply_seq(layer, x, dec_pos, cfg,
+                                                   where, memory=memory[0])
+            return got.to(torch.float32) - x.to(torch.float32)
+
+        sound[section].append(rel_l2(contribution(contextlib.nullcontext),
+                                     want))
+        controls[section].append(rel_l2(contribution(
+            lambda: sequence_attention(attention_bf16_probs)), want))
+    del record, memory
+    what = (f"{cfg.name} {cfg.param_dtype} ({cfg.encoder_layers} + "
+            f"{cfg.num_layers} layers) block by block")
+    for section in ("encoder", "decoder"):
+        log(f"encoder-decoder path: {what}, each {section} block's "
+            f"contribution through K4 vs the plain attention: relative L2 "
+            + ", ".join(f"{r:.3g}" for r in sound[section])
+            + f" (band {band[section]:.4g}); the bf16-probability control "
+            + ", ".join(f"{r:.3g}" for r in controls[section]))
+        if max(sound[section]) > band[section]:
+            fail(f"{what}, {section}: relative L2 {max(sound[section])} "
+                 f"above {band[section]}")
+        if min(controls[section]) <= band[section]:
+            fail(f"{what}, {section}: the band {band[section]} does not "
+                 f"tell the bf16-probability control "
+                 f"({min(controls[section])}) from the plain attention")
+    log(f"encoder-decoder path: {what}, each block's output in the whole K4 "
+        "prefill (chained, encoder blocks first): "
+        + ", ".join(f"{r:.3g}" for r in chained))
+    return {"rel_l2": sound, "control_rel_l2": controls,
+            "chained_rel_l2": chained}
+
+
+def encdec_f32_checks(bundle, params, prompts, src, served, kernels, spec):
+    """On a float32 model: the prefill's last-position logits through K4
+    against the plain attention, within ``spec["logits_band"]``, which the
+    encoder run causal, the memory zeroed and the bf16-probability control
+    must miss; and each decode step's logits, the served
+    tokens fed back after K4's prefill, against the forward pass through
+    the plain attention at the same position, within
+    ``spec["decode_band"]``, which the decode with the cross cache zeroed
+    at the hand-off must miss."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import default_positions
+
+    cfg = bundle.cfg
+    batch = {"tokens": prompts, "src_embeds": src}
+    got = bundle.prefill_fn(params, batch)[0]
+    with plain_kernels(*kernels):
+        plain = bundle.prefill_fn(params, batch)[0]
+    if not torch.isfinite(got).all():
+        fail(f"non-finite {cfg.name} float32 prefill logits")
+    readings = {"sound": rel_l2(got, plain)}
+    for name, context in (
+            ("encoder run causal", encoder_causal),
+            ("memory zeroed", memory_zeroed),
+            ("bf16-probability control",
+             lambda: sequence_attention(attention_bf16_probs))):
+        with context():
+            readings[name] = rel_l2(bundle.prefill_fn(params, batch)[0], plain)
+    band = spec["logits_band"]
+    what = (f"{cfg.name} float32 ({cfg.encoder_layers} + {cfg.num_layers} "
+            f"layers)")
+    log(f"encoder-decoder path: {what} prefill logits through K4 vs the "
+        f"plain attention: relative L2 {readings['sound']:.4g} (band "
+        f"{band:.4g}); controls " + json.dumps(
+            {n: float(f"{r:.4g}") for n, r in readings.items()
+             if n != "sound"}))
+    if readings["sound"] > band:
+        fail(f"{what} prefill logits: relative L2 {readings['sound']} above "
+             f"{band}")
+    for name in ("encoder run causal", "memory zeroed",
+                 "bf16-probability control"):
+        if readings[name] <= band:
+            fail(f"{what} prefill logits: the band {band} does not catch the "
+                 f"control '{name}' ({readings[name]})")
+
+    b, s = prompts.shape
+    n = served.shape[1]
+    with plain_kernels(*kernels):
+        want = bundle.forward_fn(params, {
+            "tokens": torch.cat([prompts, served[:, :-1]], dim=1),
+            "src_embeds": src})[:, s:].to(torch.float32)
+
+    def zero_cross(entry):
+        for t in entry["cross"].values():
+            t.zero_()
+
+    decode = {}
+    for name, handoff in (("sound", None), ("cross cache zeroed", zero_cross)):
+        _, cache = bundle.prefill_fn(params, batch)
+        cache = tf.pad_cache_to(cache, cfg, s + n)
+        if handoff is not None:
+            for section in cache.values():
+                for entries in section.values():
+                    for e in (entries if isinstance(entries, list)
+                              else [entries]):
+                        handoff(e)
+        steps = []
+        for i in range(n - 1):
+            pos = default_positions(cfg, b, 1, offset=s + i,
+                                    device=bundle.device)
+            logits, cache = bundle.decode_fn(params, served[:, i:i + 1], pos,
+                                             cache, s + i + 1)
+            steps.append([rel_l2(logits[j, 0], want[j, i]) for j in range(b)])
+        decode[name] = [r for step in steps for r in step]
+    band = spec["decode_band"]
+    log(f"encoder-decoder path: {what} teacher-forced decode ({b} requests x "
+        f"{n - 1} steps, cache length {s + 1}..{s + n - 1}, the cross cache "
+        f"{src.shape[1]} rows) vs the forward pass: relative L2 median "
+        f"{statistics.median(decode['sound']):.4g}, max "
+        f"{max(decode['sound']):.4g} (band {band:.4g}); the cross cache "
+        f"zeroed at the hand-off: min {min(decode['cross cache zeroed']):.4g}"
+        f", max {max(decode['cross cache zeroed']):.4g}")
+    if max(decode["sound"]) > band:
+        fail(f"{what} teacher-forced decode: relative L2 "
+             f"{max(decode['sound'])} above {band}")
+    if min(decode["cross cache zeroed"]) <= band:
+        fail(f"{what} teacher-forced decode: the band {band} does not catch "
+             f"every step of the cross cache zeroed "
+             f"({min(decode['cross cache zeroed'])})")
+    return {"prefill_logits": readings,
+            "decode": {n: [min(r), max(r)] for n, r in decode.items()}}
+
+
+def run_encdec_serving_path(kernels, counters, device=None, configure=None,
+                            spec=ENCDEC_SERVING):
+    """Full-width ``seamless_m4t_medium`` (bfloat16, seed ``ENCDEC_SEED``)
+    through ``build_model`` and ``ServeEngine.generate(prompts,
+    src_embeds)``, two calls of ``spec["batch"]`` requests, every prefill
+    and decode step timed; the kernel counters set to 0 before and read
+    after: K4 once a layer (encoder, decoder self, cross) a prefill, every
+    launch bfloat16 on the tensor cores. Then: tokens in the vocabulary,
+    the same tokens again, the first batch's decode replayed picking them,
+    the attention's sharpness at the first encoder, decoder-self and
+    cross layers, each block held against the plain attention
+    (``encdec_blocks_check``) and, drawn in float32 at ``spec["f32"]``'s
+    depth, ``encdec_f32_checks``. ``configure`` narrows the config (a
+    rehearsal on the host). Returns the path's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    narrow = configure or (lambda c: c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle, params, gen, built = build_seeded(ENCDEC_ARCH, ENCDEC_SEED,
+                                              device, narrow)
+    cfg, dev = bundle.cfg, bundle.device
+    batches = encdec_batches(cfg, gen, spec, dev)
+    calls = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            calls[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    new = spec["new"]
+    engine = ServeEngine(dataclasses.replace(
+        bundle, prefill_fn=timed("prefill", bundle.prefill_fn),
+        decode_fn=timed("decode", bundle.decode_fn)), params,
+        ServeConfig(max_new_tokens=new))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    routed = {name: collections.Counter(w.route_launches)
+              for name, w in counters.items() if hasattr(w, "route_launches")}
+    t0 = time.perf_counter()
+    tokens = np.concatenate([engine.generate(p, src) for p, src in batches])
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    routes = {name: by_route(collections.Counter(
+        counters[name].route_launches) - before)
+        for name, before in routed.items()}
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.encoder_layers + 2 * cfg.num_layers
+    want = {name: 0 for name in counters}
+    want["flash_attention"] = len(batches) * layers
+    steps = len(batches) * (new - 1)
+    log(f"encoder-decoder path {cfg.name}: {spec['requests']} requests of "
+        f"{spec['source']} source frames and {spec['prompt']} prompt tokens "
+        f"in {len(batches)} generate calls, {new} new tokens: wall "
+        f"{wall:.2f}s, prefill {[round(t, 4) for t in calls['prefill']]}s, "
+        f"decode {sum(calls['decode']):.3f}s over {len(calls['decode'])} "
+        f"steps ({1e3 * statistics.median(calls['decode']):.2f} ms a step), "
+        f"{tokens.size / wall:.1f} new tokens/s, launches {launches}, by "
+        f"route {routes}, peak device memory {peak / 2**30:.2f} GiB")
+    if launches != want:
+        fail(f"{cfg.name}: kernel launches {launches}, not {want}")
+    if (len(calls["prefill"]), len(calls["decode"])) != (len(batches), steps):
+        fail(f"{len(calls['prefill'])} prefills and {len(calls['decode'])} "
+             f"decode steps, not {len(batches)}, {steps}")
+    if tokens.shape != (spec["requests"], new) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        fail(f"tokens of shape {tokens.shape} outside [0, {cfg.vocab_size})")
+    again = np.concatenate([engine.generate(p, src) for p, src in batches])
+    if not np.array_equal(tokens, again):
+        fail(f"{cfg.name}: a second run gave other tokens "
+             f"({int((tokens != again).sum())} differ)")
+    prompts0, src0 = batches[0]
+    prompts0 = torch.as_tensor(prompts0, device=dev)
+    served = torch.as_tensor(tokens[:spec["batch"]], device=dev)
+    picks = replay_decode(bundle, params, prompts0, served,
+                          extra={"src_embeds": src0}).argmax(-1)
+    if not torch.equal(picks.to(served.dtype), served[:, 1:]):
+        fail(f"{cfg.name}: the replayed decode picked other tokens than the "
+             "engine")
+    log(f"encoder-decoder path {cfg.name}: a second run gave the same "
+        f"{tokens.size} tokens, and the first batch's decode, replayed with "
+        f"them, picks them again; first request's: {tokens[0].tolist()}")
+    stats = attention_sharpness(bundle, params, prompts0[:1], kernels,
+                                extra={"src_embeds": src0[:1]})
+    first = {"encoder": stats[0], "decoder self": stats[cfg.encoder_layers],
+             "cross": stats[cfg.encoder_layers + 1]}
+    log(f"encoder-decoder path {cfg.name}: the first encoder, decoder-self "
+        "and cross layers' attention: " + json.dumps(first))
+    blocks = encdec_blocks_check(bundle, params, prompts0, src0, kernels,
+                                 spec["block_band"])
+    del params, bundle, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = spec["f32"]
+    bundle32, params32, _, built32 = build_seeded(
+        ENCDEC_ARCH, ENCDEC_SEED, device, lambda c: narrow(dataclasses.replace(
+            c, encoder_layers=f32["encoder_layers"], num_layers=f32["layers"],
+            param_dtype="float32", compute_dtype="float32")))
+    checks32 = encdec_f32_checks(bundle32, params32, prompts0, src0, served,
+                                 kernels, f32)
+    del params32, bundle32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # why the float32 check stops there: the same reading one layer deeper
+    # on each side, logged only
+    enc, dec = f32["deeper"]
+    bundle32, params32, _, _ = build_seeded(
+        ENCDEC_ARCH, ENCDEC_SEED, device, lambda c: narrow(dataclasses.replace(
+            c, encoder_layers=enc, num_layers=dec, param_dtype="float32",
+            compute_dtype="float32")))
+    batch = {"tokens": prompts0, "src_embeds": src0}
+    got = bundle32.prefill_fn(params32, batch)[0]
+    with plain_kernels(*kernels):
+        deeper = rel_l2(got, bundle32.prefill_fn(params32, batch)[0])
+    log(f"encoder-decoder path: {cfg.name} float32 ({enc} + {dec} layers) "
+        f"prefill logits through K4 vs the plain attention (logged, not "
+        f"held): relative L2 {deeper:.4g}")
+    del params32, bundle32, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**built, "arch": cfg.name, "wall_s": wall,
+            "prefill_s": calls["prefill"], "decode_s": sum(calls["decode"]),
+            "decode_step_ms": 1e3 * statistics.median(calls["decode"]),
+            "new_tokens_per_s": tokens.size / wall, "launches": launches,
+            "routes": routes, "peak_gib": peak / 2**30,
+            "attention_sharpness": first, "blocks_bf16": blocks,
+            "f32": {**built32, "encoder_layers": f32["encoder_layers"],
+                    "layers": f32["layers"], **checks32,
+                    "deeper": {"layers": [enc, dec], "rel_l2": deeper}}}
+
+
+def encdec_gradient_check(kernels, counters, device=None, configure=None,
+                          spec=ENCDEC_GRAD):
+    """One float32 step's gradients of seamless at full width and
+    ``spec``'s depth, every query projection scaled by
+    ``spec["wq_scale"]`` (the attention's sharpness at the first encoder,
+    decoder-self and cross layers logged), through the kernels (K4 and
+    K4b) against the same step through their plain versions, worst leaf
+    by relative L2 within ``spec["band"]``, which K4b with delta zero and
+    K4b on bf16-rounded operands must miss (K4b's plain version on
+    operands one ulp apart logged beside them); every encoder leaf's
+    gradient non-zero and its worst reading logged."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(
+        get_config(ENCDEC_ARCH), encoder_layers=spec["encoder_layers"],
+        num_layers=spec["layers"], param_dtype="float32",
+        compute_dtype="float32")
+    cfg = configure(cfg) if configure else cfg
+    bundle = build_model(cfg, device)
+    gen = torch.Generator(device=bundle.device).manual_seed(ENCDEC_SEED)
+    params = bundle.init(gen, trainable=True)
+    scale_queries(params, spec["wq_scale"])
+    rng = np.random.default_rng(ENCDEC_SEED)
+    toks = rng.integers(0, cfg.vocab_size, (spec["batch"], spec["target"] + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+             "targets": torch.as_tensor(toks[:, 1:], dtype=torch.int32),
+             "src_embeds": torch.randn(
+                 (spec["batch"], spec["source"], cfg.d_model), generator=gen,
+                 device=bundle.device)}
+    stats = attention_sharpness(bundle, params, batch["tokens"][:1],
+                                kernels,
+                                extra={"src_embeds": batch["src_embeds"][:1]})
+    first = {"encoder": stats[0], "decoder self": stats[cfg.encoder_layers],
+             "cross": stats[cfg.encoder_layers + 1]}
+    log(f"gradient check {cfg.name}, wq scaled by {spec['wq_scale']}: the "
+        "first encoder, decoder-self and cross layers' attention: "
+        + json.dumps(first))
+    for w in counters.values():
+        w.launches = 0
+    loss, got = gradients(bundle, params, batch)
+    launches = {n: w.launches for n, w in counters.items()}
+    readings = {}
+    with plain_training(*kernels):
+        plain_loss, want = gradients(bundle, params, batch)
+        for fault in ("delta zero", "bf16 operands", "one ulp"):
+            with swapped(attn_ops, "flash_attention_bwd_cuda",
+                         functools.partial(attention_bwd_faulty,
+                                           fault=fault)):
+                _, bad = gradients(bundle, params, batch)
+            readings[fault] = worst_leaf(bad, want)
+            del bad
+    rel, leaf = worst_leaf(got, want)
+    encoder = {n: g for n, g in got.items() if n.startswith("encoder.")}
+    enc_rel, enc_leaf = worst_leaf(encoder, {n: want[n] for n in encoder})
+    zero = [n for n, g in encoder.items() if not bool(g.abs().max() > 0)]
+    band = spec["band"]
+    layers = cfg.encoder_layers + 2 * cfg.num_layers
+    counted = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    log(f"gradient check {cfg.name} at {cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, batch {spec['batch']} x ({spec['source']} "
+        f"frames, {spec['target']} tokens), float32: loss {float(loss):.6f} "
+        f"(plain {float(plain_loss):.6f}), launches {launches}; worst leaf "
+        f"{leaf} relative L2 {rel:.4g} (band {band:.3g}); the encoder's "
+        f"worst {enc_leaf} {enc_rel:.4g}, {len(encoder)} leaves, "
+        f"{len(zero)} with a zero gradient; controls " + json.dumps(
+            {n: [float(f"{r:.4g}"), lf] for n, (r, lf) in readings.items()}))
+    if any(launches.get(n) != c for n, c in counted.items()):
+        fail(f"gradient check {cfg.name}: launches {launches}, not {counted}")
+    if not torch.isfinite(loss) or rel > band:
+        fail(f"gradient check {cfg.name}: leaf {leaf} at relative L2 {rel} "
+             f"above {band}")
+    if zero:
+        fail(f"gradient check {cfg.name}: encoder leaves with a zero "
+             f"gradient {zero[:5]}")
+    for name in ("delta zero", "bf16 operands"):
+        r, lf = readings[name]
+        if r <= band:
+            fail(f"gradient check {cfg.name}: the control 'K4b with {name}' "
+                 f"({r} at {lf}) is inside the band {band}")
+    del params, got, want, bundle
+    torch.cuda.empty_cache()
+    return {"rel_l2": rel, "leaf": leaf, "band": band, "launches": launches,
+            "encoder_rel_l2": enc_rel, "encoder_leaf": enc_leaf,
+            "wq_scale": spec["wq_scale"], "attention_sharpness": first,
+            "controls": {n: r for n, (r, _) in readings.items()}}
+
+
+def run_encdec_training_path(counters, kernels, device=None, cfg=None,
+                             spec=ENCDEC_TRAIN, grad_spec=ENCDEC_GRAD,
+                             configure=None):
+    """seamless_m4t_medium at full width and depth (or ``cfg``), every
+    query projection scaled by ``spec["wq_scale"]``, trained through
+    ``make_train_step`` for ``spec["steps"]`` steps on one fixed batch
+    (tokens and targets of the byte-level corpus, the source drawn from
+    the seed), 2 microbatches, remat, bfloat16 moments; the kernel
+    counters set to 0 before and read after: K4 2 and K4b 1 a layer
+    (encoder, decoder self, cross) a microbatch, every launch on the tensor
+    cores. The loss must be finite and fall. Then
+    ``encdec_gradient_check``. Returns the path's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import CorpusSpec, HostBatcher, ShardedCorpus
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import optimizer as opt
+
+    cfg = cfg or get_config(ENCDEC_ARCH)
+    b, steps = spec["batch"], spec["steps"]
+    bundle = build_model(cfg, device)
+    dev = bundle.device
+    tcfg = TrainConfig(**ENCDEC_TRAIN_CONFIG)
+    gen = torch.Generator(device=dev).manual_seed(ENCDEC_SEED)
+    state = init_train_state(bundle, tcfg, gen)
+    corpus = ShardedCorpus(CorpusSpec(
+        num_shards=2, tokens_per_shard=2 * b * (spec["target"] + 1),
+        seed=ENCDEC_SEED))
+    fixed = HostBatcher([corpus.shard_tokens(i) for i in range(2)],
+                        batch_size=b, seq_len=spec["target"]).take(1)[0]
+    batch = {"tokens": fixed.tokens, "targets": fixed.targets}
+    batch["src_embeds"] = torch.randn((b, spec["source"], cfg.d_model),
+                                      generator=gen, device=dev)
+    # why the queries are scaled: the gradient's global norm at the seeded
+    # scale and at the scaled one, on the batch's first microbatch
+    half = {k: v[:b // tcfg.microbatches] for k, v in batch.items()}
+    norms = {}
+    for name, factor in (("seeded", 1.0), ("scaled", spec["wq_scale"])):
+        scale_queries(state.params, factor)
+        _, grads = gradients(bundle, state.params, half)
+        norms[name] = float(opt.global_norm(grads))
+        del grads
+    log(f"encoder-decoder training path: the gradient's global norm at the "
+        f"seeded scale {norms['seeded']:.4g}, with every wq scaled by "
+        f"{spec['wq_scale']} {norms['scaled']:.4g}")
+    clock = StepClock(make_train_step(bundle, tcfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counters.values():
+        w.launches = 0
+    routed = {n: collections.Counter(w.route_launches)
+              for n, w in counters.items() if hasattr(w, "route_launches")}
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = clock(state, batch)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in counters.items()}
+    routes = {n: by_route(collections.Counter(counters[n].route_launches)
+                          - before) for n, before in routed.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step_s, k4b_ms = list(clock.seconds), list(clock.k4b_ms)
+    del clock, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = cfg.encoder_layers + 2 * cfg.num_layers
+    mb = tcfg.microbatches
+    want = {n: 0 for n in counters}
+    want.update(flash_attention=2 * steps * mb * layers,
+                flash_attention_bwd=steps * mb * layers)
+    losses = [m["loss"] for m in metrics]
+    tokens = b * spec["target"]
+    log(f"encoder-decoder training path {cfg.name} ({cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, {n_params} parameters): {steps} steps of "
+        f"one fixed {b} x ({spec['source']} frames, {spec['target']} tokens) "
+        f"batch in {mb} microbatches through make_train_step, wall "
+        f"{wall:.2f}s; step seconds {[round(t, 3) for t in step_s]} "
+        f"({tokens / statistics.median(step_s):.1f} target tokens/s); K4b "
+        f"{[round(t, 2) for t in k4b_ms]} ms a step; metrics {metrics}; "
+        f"launches {launches} (counted {want}), by route {routes}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    if len(metrics) != steps or not (
+            np.isfinite([list(m.values()) for m in metrics]).all()
+            and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+        fail(f"encoder-decoder training path: metrics {metrics} (finite, the "
+             f"loss falling, wanted)")
+    if launches != want:
+        fail(f"encoder-decoder training path: launches {launches}, not "
+             f"{want}")
+    for name, r in routes.items():
+        wrong = {k: n for k, n in r.items()
+                 if DTYPE_ROUTE.get(k.split("/")[0]) != k.split("/")[1]}
+        if wrong or sum(r.values()) != launches[name]:
+            fail(f"encoder-decoder training path: {name} launches by route "
+                 f"{r}")
+    grads = encdec_gradient_check(kernels, counters, device, configure,
+                                  grad_spec)
+    return {"arch": cfg.name, "layers": [cfg.encoder_layers, cfg.num_layers],
+            "params": n_params, "steps": steps, "batch": b,
+            "source": spec["source"], "target": spec["target"],
+            "microbatches": mb, "wall_s": wall, "step_s": step_s,
+            "k4b_ms_per_step": k4b_ms, "metrics": metrics,
+            "launches": launches, "routes": routes, "peak_gib": peak / 2**30,
+            "grad_norm_at_init": norms, "gradients_f32": grads}
+
 
 # ------------------------------------------------------------------ main
 
@@ -4337,6 +5184,7 @@ def main() -> int:
         k4_record = check_k4(k4, dev)
         k4_record["ptxas"] = k4_ptxas
         k4_record["moe_prefill"] = check_k4_moe_shapes(k4, dev)
+        k4_record["seamless_prefill"] = check_k4_seamless_shapes(k4, dev)
         k4b_record = check_k4b(k4, dev)
         k4b_record["ptxas"] = k4b_ptxas
         k5_record = check_k5(k5, dev)
@@ -4398,7 +5246,18 @@ def main() -> int:
     with phase(f"MoE training path {MOE_TRAIN_ARCH}"):
         moe_training = run_moe_training_path(train_counters)
     log("MoE training path outcome: " + json.dumps(moe_training))
+    with phase(f"encoder-decoder serving path {ENCDEC_ARCH}"):
+        encdec = run_encdec_serving_path((k4, k5, k6), counters)
+    log("encoder-decoder serving path outcome: " + json.dumps(encdec))
+    paths[ENCDEC_ARCH] = encdec["launches"]
+    routes[ENCDEC_ARCH] = encdec["routes"]
+    with phase(f"encoder-decoder training path {ENCDEC_ARCH}"):
+        encdec_training = run_encdec_training_path(
+            {**counters, **train_counters}, (k4, k5, k6))
+    log("encoder-decoder training path outcome: "
+        + json.dumps(encdec_training))
     moe_train_path = f"train {MOE_TRAIN_ARCH}"
+    encdec_train_path = f"train {ENCDEC_ARCH}"
     # each kernel's launches on the first path that runs it: serving for
     # K4, K5 and K6, training for K4b
     k4_record["launches"] = paths[SERVE_ARCH]["flash_attention"]
@@ -4412,9 +5271,13 @@ def main() -> int:
         training["launches"]["flash_attention"])
     k4_record["launches_by_path"][moe_train_path] = (
         moe_training["launches"]["flash_attention"])
+    k4_record["launches_by_path"][encdec_train_path] = (
+        encdec_training["launches"]["flash_attention"])
     k4b_record["launches_by_path"] = {
         f"train {TRAIN_ARCH}": training["launches"]["flash_attention_bwd"],
-        moe_train_path: moe_training["launches"]["flash_attention_bwd"]}
+        moe_train_path: moe_training["launches"]["flash_attention_bwd"],
+        encdec_train_path:
+            encdec_training["launches"]["flash_attention_bwd"]}
     train_path = f"train {TRAIN_ARCH}"
     for record, wrapper in ((k4_record, k4.flash_attention_cuda),
                             (k5_record, k5.ssd_chunked_cuda)):
@@ -4426,6 +5289,9 @@ def main() -> int:
             by_path[moe_train_path] = (
                 moe_training["routes"]["flash_attention"],
                 moe_training["launches"]["flash_attention"])
+            by_path[encdec_train_path] = (
+                encdec_training["routes"]["flash_attention"],
+                encdec_training["launches"]["flash_attention"])
         record["routes"] = check_routes(
             "K4" if record is k4_record else "K5", wrapper.route_launches,
             by_path)
@@ -4434,7 +5300,10 @@ def main() -> int:
         {train_path: (training["routes"]["flash_attention_bwd"],
                       training["launches"]["flash_attention_bwd"]),
          moe_train_path: (moe_training["routes"]["flash_attention_bwd"],
-                          moe_training["launches"]["flash_attention_bwd"])})
+                          moe_training["launches"]["flash_attention_bwd"]),
+         encdec_train_path: (
+             encdec_training["routes"]["flash_attention_bwd"],
+             encdec_training["launches"]["flash_attention_bwd"])})
     if k4.flash_attention_bwd_replaced_cuda.launches:
         fail(f"the SIMT backward that K4b's tensor-core route replaced was "
              f"launched {k4.flash_attention_bwd_replaced_cuda.launches} "

@@ -14,8 +14,10 @@ its local attention through K4, e.g.::
 
 ``--arch dbrx_132b`` and ``--arch arctic_480b`` run their
 mixture-of-experts FFNs on the local path (every expert on this device)
-beside K4; seamless raises ``NotImplementedError`` (``ROADMAP.md`` queue 1
-item 2). ``--ckpt-dir`` restores the ``params`` leaves of
+beside K4. ``--arch seamless_m4t_medium`` fails as the reference's does,
+with ``KeyError('src_embeds')``: the slot engine's queue carries no source,
+and an encoder-decoder is served through ``ServeEngine.generate(prompts,
+src_embeds)``. ``--ckpt-dir`` restores the ``params`` leaves of
 the latest checkpoint under it (one that ``launch.train`` or the JAX
 package's trainer wrote: the format is shared) into the seeded model, as
 the reference does, and serves those weights::

@@ -14,8 +14,12 @@ attention has no kernel in either package and stays plain torch.
 
 The weight layouts are the JAX package's (``wq (d, hq, h)``, ``wk``/``wv
 (d, hkv, h)``, ``wo (hq, h, d)``). All softmax arithmetic is float32
-whatever the compute dtype. Cross attention and the split-KV decode of a
-mesh are not ported yet (``ROADMAP.md`` queue 1 items 2 and 3).
+whatever the compute dtype. Cross attention (an encoder-decoder's
+decoder reading the encoder's memory) takes the sequence path through K4,
+non-causal, with the query length the decoder's and the key length the
+source's; its decode step reads the cross cache and writes nothing. The
+split-KV decode of a mesh is not ported yet (``ROADMAP.md`` queue 1 item
+3).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ NEG_INF = -2.0e38
 # --------------------------------------------------------------------------- specs
 
 
-def attn_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+def attn_specs(cfg: ModelConfig, cross: bool = False
+               ) -> dict[str, ParamSpec]:
     d, h, hq, hkv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     specs = {
         "wq": ParamSpec((d, hq, h), (EMBED, QHEADS, HEADDIM)),
@@ -44,7 +49,7 @@ def attn_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
         "wv": ParamSpec((d, hkv, h), (EMBED, KVHEADS, HEADDIM)),
         "wo": ParamSpec((hq, h, d), (QHEADS, HEADDIM, EMBED)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["q_gamma"] = ParamSpec((h,), (HEADDIM,), init="zeros")
         specs["k_gamma"] = ParamSpec((h,), (HEADDIM,), init="zeros")
     return specs
@@ -212,11 +217,18 @@ def attention_step(
     cfg: ModelConfig,
     *,
     local: bool,
+    cross: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Single decode step; returns (out, cache). The JAX package returns a
     new cache (its old one donated); here row ``cache_len - 1`` of the
-    preallocated cache is written in place and the same dict returned."""
-    q = project_q(params, x, cfg, position)
+    preallocated cache is written in place and the same dict returned. A
+    ``cross`` step projects q without RoPE and reads every row of the
+    cross cache (the encoder's K/V), writing nothing."""
+    q = project_q(params, x, cfg, position, rope=not cross)
+    if cross:
+        ctx = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1],
+                               attn_softcap=cfg.attn_logit_softcap)
+        return o_proj(params, ctx), cache
     k, v = project_kv(params, x, cfg, position)
     window = cfg.window if local else 0
     idx = cache_len - 1

@@ -3,9 +3,11 @@ modules.
 
 The JAX package keeps a model's parameters as nested dicts with each
 block-pattern position's layers stacked along a leading axis
-(``groups/<i>/attn/wq`` of shape ``(group_count, d, hq, h)``). The port's
-modules hold one layer each (``groups.<i>.<g>.attn.wq``), so loading is a
-name map that splits the stacked axis. :func:`params_from_jax` takes that
+(``groups/<i>/attn/wq`` of shape ``(group_count, d, hq, h)``), and an
+encoder's layers likewise (``encoder/blocks/attn/wq`` of shape
+``(encoder_layers, d, hq, h)``). The port's modules hold one layer each
+(``groups.<i>.<g>.attn.wq``, ``encoder.blocks.<l>.attn.wq``), so loading
+is a name map that splits the stacked axis. :func:`params_from_jax` takes that
 tree as numpy arrays (the caller turns jax arrays into numpy; the port
 never sees jax); :func:`load_tree` takes it as tensors. Both copy every
 leaf into the model and raise on a leaf left over, a parameter missing, or
@@ -23,13 +25,24 @@ import torch
 from .layers import draw_params, tree_leaves
 
 
+def stacked(parts: list[str]) -> bool:
+    """Whether a JAX tree path (split at ``/``) names a stacked leaf:
+    ``groups/<i>/<rest>`` or ``encoder/blocks/<rest>``, whose first two
+    parts name the stack and whose leading axis is the layer."""
+    return parts[0] == "groups" or parts[:2] == ["encoder", "blocks"]
+
+
+def layer_name(parts: list[str], g: int) -> str:
+    """The module parameter name of layer ``g`` of a stacked leaf:
+    ``groups.<i>.<g>.<rest>`` or ``encoder.blocks.<g>.<rest>``."""
+    return ".".join([*parts[:2], str(g), *parts[2:]])
+
+
 def _targets(path: str, leaf) -> list[tuple[str, Any]]:
     """The module parameter name(s) of one JAX tree leaf and their values."""
     parts = path.split("/")
-    if parts[0] == "groups":
-        # groups/<i>/<rest>, stacked: layer g is leaf[g]
-        head, rest = parts[:2], parts[2:]
-        return [(".".join([*head, str(g), *rest]), leaf[g])
+    if stacked(parts):
+        return [(layer_name(parts, g), leaf[g])
                 for g in range(leaf.shape[0])]
     return [(".".join(parts), leaf)]
 
@@ -72,18 +85,14 @@ def draw_into(model: torch.nn.Module, specs: dict,
     params = dict(model.named_parameters())
     written = set()
 
-    def layer(parts, g):
-        # groups/<i>/<rest>, stacked: layer g is groups.<i>.<g>.<rest>
-        return ".".join([*parts[:2], str(g), *parts[2:]])
-
     def write(path, spec, index, value):
         parts = path.split("/")
-        if parts[0] != "groups":
+        if not stacked(parts):
             targets = [(".".join(parts), index, value)]
         elif index:                 # a slice of layer index[0]
-            targets = [(layer(parts, index[0]), index[1:], value)]
+            targets = [(layer_name(parts, index[0]), index[1:], value)]
         else:                       # the whole stack: layer g is value[g]
-            targets = [(layer(parts, g), (),
+            targets = [(layer_name(parts, g), (),
                         value[g] if torch.is_tensor(value) else value)
                        for g in range(spec.shape[0])]
         for name, idx, v in targets:

@@ -24,12 +24,18 @@ with gradients on, through each kernel's ``torch.autograd.Function``
 (K4 with its backward K4b, K5, K6), and with remat per scan group as the
 config says. Serving's ``forward_fn``, ``prefill_fn`` and ``decode_fn``
 run under ``torch.no_grad()``. :mod:`repro_torch.train` drives the loss.
+
+An encoder-decoder (seamless) reads its source from the batch:
+``batch["src_embeds"]`` (B, S_enc, d_model), the frontend's embeddings,
+cast to the compute dtype and run through the encoder, whose output every
+decoder block's cross attention reads. A batch without it raises
+``KeyError('src_embeds')``, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -95,7 +101,7 @@ class ModelBundle:
 def build_model(cfg: ModelConfig, device=None,
                 ep: EPContext = EPContext()) -> ModelBundle:
     dev = resolve_device(device)
-    specs = tf.decoder_specs(cfg)      # raises for blocks not ported yet
+    specs = tf.decoder_specs(cfg)
     pdtype = _dtype(cfg.param_dtype)
     cdtype = _dtype(cfg.compute_dtype)
 
@@ -111,6 +117,14 @@ def build_model(cfg: ModelConfig, device=None,
         model and one float32 leaf or slice at a time."""
         return draw_into(skeleton(trainable), specs, generator)
 
+    def memory(params: Params, batch: dict) -> Optional[torch.Tensor]:
+        """The encoder's output over ``batch["src_embeds"]``, or None for
+        a decoder-only config (the reference's ``_memory``)."""
+        if cfg.encoder_layers <= 0:
+            return None
+        src = torch.as_tensor(batch["src_embeds"]).to(dev, cdtype)
+        return tf.encoder_apply(params["encoder"], src, cfg, ep)
+
     def decode_batch(params: Params, batch: dict, *, want_cache: bool = False,
                      last_only: bool = False):
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
@@ -119,6 +133,7 @@ def build_model(cfg: ModelConfig, device=None,
         positions = (default_positions(cfg, b, s, device=dev)
                      if positions is None else positions.to(dev))
         return tf.decoder_apply(params, tokens, positions, cfg, ep,
+                                memory=memory(params, batch),
                                 want_cache=want_cache, last_only=last_only)
 
     forward = torch.no_grad()(decode_batch)
@@ -157,8 +172,8 @@ def build_model(cfg: ModelConfig, device=None,
         return tf.decode_step(params, token.to(dev), position.to(dev), cache,
                               int(cache_len), cfg, ep)
 
-    def cache_init(batch: int, capacity: int) -> Cache:
-        return tf.cache_init(cfg, batch, capacity, cdtype, dev)
+    def cache_init(batch: int, capacity: int, cross_len: int = 0) -> Cache:
+        return tf.cache_init(cfg, batch, capacity, cdtype, dev, cross_len)
 
     return ModelBundle(
         cfg=cfg, specs=specs, device=dev, init=init, skeleton=skeleton,

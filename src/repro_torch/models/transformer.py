@@ -1,4 +1,5 @@
-"""Decoder stack (counterpart of ``repro/models/transformer.py``).
+"""Decoder (and encoder-decoder) stack (counterpart of
+``repro/models/transformer.py``).
 
 Layers are ``group_count`` repetitions of ``cfg.block_pattern`` (gemma2:
 ``("local_attn", "attn")``; recurrentgemma: ``("rec", "rec",
@@ -18,16 +19,28 @@ aux losses (load balance ``lb`` and router ``z``) summed over the layers,
 out of the checkpoints too; the decode step drops them, as the
 reference's does.
 
+An encoder-decoder (``cfg.encoder_layers > 0``, seamless) adds an
+``encoder`` section, ``encoder.blocks.<l>`` one ``attn`` block a layer and
+a ``final_ln``: :func:`encoder_apply` runs it bidirectionally (K4 with
+``causal=False``) over the frontend's embeddings, with RoPE at positions
+``0 .. S_enc - 1``, each layer under a checkpoint where remat applies. Each
+decoder attention block then has ``ln_cross`` and ``cross`` (attention
+parameters without qk-norm gains): K and V projected from the encoder's
+memory and q from ``ln_cross``, neither rotated, through K4 non-causal
+with ``Sq`` the decoder's length and ``Skv`` the source's.
+
 Caches mirror the structure: ``{"groups": {i: [entry per repetition]},
 "tail": {i: entry}}``. An attention entry is ``{"self": {"k", "v"[,
 "k_scale", "v_scale"]}}`` of ``(B, capacity, Hkv, D)``, written in place
-row by row; a state entry (``rec``, ``ssd``) is ``{"h", "conv"}`` of a
-constant size, replaced by a new one at every decode step.
+row by row, and in an encoder-decoder ``"cross": {"k", "v"}`` of ``(B,
+cross_len, Hkv, D)`` in the compute dtype (also under an int8 KV cache),
+which decoding reads and never writes; a state entry (``rec``, ``ssd``) is
+``{"h", "conv"}`` of a constant size, replaced by a new one at every
+decode step.
 
-Ported block kinds: ``attn`` and ``local_attn`` with a dense or an MoE
-FFN (:mod:`.moe`, routed by ``EPContext``), ``rec`` (RG-LRU with a dense
-MLP, kernel K6) and ``ssd`` (Mamba-2, kernel K5). The encoder raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+Block kinds: ``attn`` and ``local_attn`` with a dense or an MoE FFN
+(:mod:`.moe`, routed by ``EPContext``), ``rec`` (RG-LRU with a dense MLP,
+kernel K6) and ``ssd`` (Mamba-2, kernel K5).
 """
 
 from __future__ import annotations
@@ -50,16 +63,6 @@ from .ssd import ssd_cache_init, ssd_sequence, ssd_specs, ssd_step
 Params = Any
 Cache = Any
 
-_LATER = {
-    "encoder": "the encoder and cross attention (seamless) wait for "
-               "ROADMAP.md queue 1 item 2",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {_LATER[what]}")
-
-
 # --------------------------------------------------------------------------- specs
 
 
@@ -68,7 +71,7 @@ def _ffn_specs(cfg: ModelConfig) -> dict:
                                                        cfg.act)
 
 
-def block_specs(cfg: ModelConfig, kind: str) -> dict:
+def block_specs(cfg: ModelConfig, kind: str, cross: bool = False) -> dict:
     d = cfg.d_model
     if kind == "ssd":
         return {"ln1": rms_norm_spec(d), "ssd": ssd_specs(cfg)}
@@ -81,48 +84,66 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
         }
     if kind not in ("attn", "local_attn"):
         raise ValueError(f"unknown block kind {kind!r}")
-    return {
+    specs = {
         "ln1": rms_norm_spec(d),
         "attn": attn.attn_specs(cfg),
         "ln2": rms_norm_spec(d),
         "ffn": _ffn_specs(cfg),
     }
+    if cross:
+        specs["ln_cross"] = rms_norm_spec(d)
+        specs["cross"] = attn.attn_specs(cfg, cross=True)
+    return specs
 
 
 def decoder_specs(cfg: ModelConfig) -> dict:
-    """The JAX package's parameter spec tree, stacked groups included."""
-    if cfg.encoder_layers > 0:
-        raise not_ported("encoder")
-    return {
+    """The JAX package's parameter spec tree, stacked groups (and the
+    encoder's stacked blocks) included."""
+    cross = cfg.encoder_layers > 0
+    specs = {
         "embed": embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings),
         "final_ln": rms_norm_spec(cfg.d_model),
         "groups": {
-            str(i): stack_specs(block_specs(cfg, kind), cfg.group_count)
+            str(i): stack_specs(block_specs(cfg, kind, cross),
+                                cfg.group_count)
             for i, kind in enumerate(cfg.block_pattern)
         },
         "tail": {
-            str(i): block_specs(cfg, kind)
+            str(i): block_specs(cfg, kind, cross)
             for i, kind in enumerate(cfg.tail_pattern)
         },
     }
+    if cross:
+        specs["encoder"] = {
+            "blocks": stack_specs(block_specs(cfg, "attn"),
+                                  cfg.encoder_layers),
+            "final_ln": rms_norm_spec(cfg.d_model),
+        }
+    return specs
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
     """:func:`decoder_specs` with each stacked group split into a list of
-    ``group_count`` per-layer spec trees (the port's module tree)."""
+    ``group_count`` per-layer spec trees, and the encoder's stack into a
+    list of ``encoder_layers`` (the port's module tree)."""
     specs = decoder_specs(cfg)
+    cross = cfg.encoder_layers > 0
     specs["groups"] = {
-        str(i): [block_specs(cfg, kind) for _ in range(cfg.group_count)]
+        str(i): [block_specs(cfg, kind, cross)
+                 for _ in range(cfg.group_count)]
         for i, kind in enumerate(cfg.block_pattern)
     }
+    if cross:
+        specs["encoder"]["blocks"] = [block_specs(cfg, "attn")
+                                      for _ in range(cfg.encoder_layers)]
     return specs
 
 
 def layer_runs(params: Params, cfg: ModelConfig):
-    """The layers in execution order, in runs of ``(kind, layer params,
-    (section, i, g))``: one run for each repetition of the pattern (what
-    remat recomputes as one), then the tail, a layer a run (``g`` is None
-    there)."""
+    """The decoder's layers in execution order, in runs of ``(kind, layer
+    params, (section, i, g))``: one run for each repetition of the pattern
+    (what remat recomputes as one), then the tail, a layer a run (``g`` is
+    None there)."""
     for g in range(cfg.group_count):
         yield [(kind, params["groups"][str(i)][g], ("groups", str(i), g))
                for i, kind in enumerate(cfg.block_pattern)]
@@ -153,10 +174,13 @@ def _ffn_apply(params, x: torch.Tensor, cfg: ModelConfig, ep: EPContext
 
 def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, kind: str, ep: EPContext = EPContext(),
-                    *, causal: bool = True
+                    *, causal: bool = True,
+                    memory: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, dict, dict]:
     """One block over a full sequence. Returns (x, cache_entry, aux): the
-    MoE FFN's aux losses, or {}."""
+    MoE FFN's aux losses, or {}. With the encoder's ``memory`` (B, S_enc,
+    D), an attention block that has cross parameters attends to it after
+    its self attention."""
     if kind == "ssd":
         h, state = ssd_sequence(
             params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
@@ -179,6 +203,16 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
         cache = {"self": {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}}
     else:
         cache = {"self": {"k": k, "v": v}}
+    if memory is not None and "cross" in params:
+        mem_k, mem_v = attn.project_kv(params["cross"], memory, cfg, None,
+                                       rope=False)
+        q = attn.project_q(params["cross"],
+                           rms_norm(x, params["ln_cross"], cfg.norm_eps),
+                           cfg, None, rope=False)
+        ctx = attn.flash_attention(q, mem_k, mem_v, causal=False,
+                                   attn_softcap=cfg.attn_logit_softcap)
+        x = x + attn.o_proj(params["cross"], ctx)
+        cache["cross"] = {"k": mem_k, "v": mem_v}
     h, aux = _ffn_apply(params["ffn"],
                         rms_norm(x, params["ln2"], cfg.norm_eps), cfg, ep)
     return x + h, cache, aux
@@ -189,8 +223,9 @@ def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
                      ep: EPContext = EPContext()
                      ) -> tuple[torch.Tensor, dict]:
     """One block for one token (B, 1, D). Returns (x, entry): attention
-    writes its K/V row into ``cache`` and returns it; a state block returns
-    a new entry and leaves ``cache`` as it was."""
+    writes its K/V row into ``cache`` and returns it (reading the cross
+    entry, where there is one, after the self attention); a state block
+    returns a new entry and leaves ``cache`` as it was."""
     if kind == "ssd":
         h, state = ssd_step(
             params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cache,
@@ -209,9 +244,49 @@ def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
         cache["self"], cache_len, cfg, local=kind == "local_attn",
     )
     x = x + h
+    if "cross" in cache and "cross" in params:
+        h, _ = attn.attention_step(
+            params["cross"], rms_norm(x, params["ln_cross"], cfg.norm_eps),
+            position, cache["cross"], cache_len, cfg, local=False, cross=True,
+        )
+        x = x + h
     h, _ = _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
                       cfg, ep)
     return x + h, cache
+
+
+# --------------------------------------------------------------------------- encoder
+
+
+def _remat(cfg: ModelConfig, want_cache: bool = False) -> bool:
+    if cfg.remat not in ("block", "none"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the port has 'block' and 'none'")
+    return (cfg.remat == "block" and torch.is_grad_enabled()
+            and not want_cache)
+
+
+def encoder_apply(params, embeds: torch.Tensor, cfg: ModelConfig,
+                  ep: EPContext = EPContext()) -> torch.Tensor:
+    """The bidirectional encoder over the frontend's embeddings (B, S_enc,
+    D): RoPE positions ``0 .. S_enc - 1``, every layer an ``attn`` block
+    with ``causal=False``, then ``final_ln``. With gradients on and
+    ``cfg.remat == "block"``, each layer runs under a checkpoint (the
+    reference's ``jax.checkpoint`` of its per-layer scan body)."""
+    b, s = embeds.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=embeds.device)[None].expand(b, s)
+
+    def body(x, layer):
+        return block_apply_seq(layer, x, positions, cfg, "attn", ep,
+                               causal=False)[0]
+
+    remat = _remat(cfg)
+    x = embeds
+    for layer in params["blocks"]:
+        x = (checkpoint(body, x, layer, use_reentrant=False) if remat
+             else body(x, layer))
+    return rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------- decoder
@@ -237,29 +312,34 @@ def _sum_aux(acc: dict, new: dict) -> dict:
 
 
 def _run_layers(x: torch.Tensor, run: list, positions: torch.Tensor,
-                cfg: ModelConfig, ep: EPContext
+                cfg: ModelConfig, ep: EPContext,
+                memory: Optional[torch.Tensor]
                 ) -> tuple[torch.Tensor, list, dict]:
     """One run of :func:`layer_runs` over ``x``: ``(x, cache entries, aux
     summed over the run)``."""
     entries, aux = [], {}
     for kind, layer, _ in run:
-        x, entry, a = block_apply_seq(layer, x, positions, cfg, kind, ep)
+        x, entry, a = block_apply_seq(layer, x, positions, cfg, kind, ep,
+                                      memory=memory)
         entries.append(entry)
         aux = _sum_aux(aux, a)
     return x, entries, aux
 
 
 def _run_checkpointed(x: torch.Tensor, run: list, positions: torch.Tensor,
-                      cfg: ModelConfig, ep: EPContext
+                      cfg: ModelConfig, ep: EPContext,
+                      memory: Optional[torch.Tensor]
                       ) -> tuple[torch.Tensor, dict]:
     """:func:`_run_layers` under a checkpoint (its activations recomputed
-    in the backward); the aux losses leave it beside ``x``."""
+    in the backward); the aux losses leave it beside ``x``. The encoder's
+    memory enters as an input of the checkpoint, so that every cross
+    block's K/V carries its gradient back to the encoder."""
 
-    def body(x, run):
-        x, _, aux = _run_layers(x, run, positions, cfg, ep)
+    def body(x, memory, run):
+        x, _, aux = _run_layers(x, run, positions, cfg, ep, memory)
         return (x, *(aux[k] for k in sorted(aux)))
 
-    x, *values = checkpoint(body, x, run, use_reentrant=False)
+    x, *values = checkpoint(body, x, memory, run, use_reentrant=False)
     return x, dict(zip(sorted(_MOE_AUX if cfg.is_moe else ()), values))
 
 
@@ -270,6 +350,7 @@ def decoder_apply(
     cfg: ModelConfig,
     ep: EPContext = EPContext(),
     *,
+    memory: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     last_only: bool = False,
 ) -> tuple[torch.Tensor, dict, Optional[Cache]]:
@@ -281,12 +362,9 @@ def decoder_apply(
     values as the full logits' last row, since each position's norm and
     head are its own. With gradients on and no cache asked for (the loss)
     and ``cfg.remat == "block"``, each repetition of the pattern runs under
-    a checkpoint."""
-    if cfg.remat not in ("block", "none"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: the port has 'block' and 'none'")
-    remat = (cfg.remat == "block" and torch.is_grad_enabled()
-             and not want_cache)
+    a checkpoint. ``memory`` is the encoder's output (B, S_enc, D), which
+    an encoder-decoder's cross blocks attend to."""
+    remat = _remat(cfg, want_cache)
     x = embed_lookup(params["embed"], tokens, cfg.d_model)
     aux: dict = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                  for k in (_MOE_AUX if cfg.is_moe else ())}
@@ -297,10 +375,10 @@ def decoder_apply(
     for run in layer_runs(params, cfg):
         _, _, (section, _, _) = run[0]
         if remat and section == "groups":
-            x, a = _run_checkpointed(x, run, positions, cfg, ep)
+            x, a = _run_checkpointed(x, run, positions, cfg, ep, memory)
             aux = _sum_aux(aux, a)
             continue
-        x, entries, a = _run_layers(x, run, positions, cfg, ep)
+        x, entries, a = _run_layers(x, run, positions, cfg, ep, memory)
         aux = _sum_aux(aux, a)
         if not want_cache:
             continue
@@ -339,34 +417,45 @@ def decode_step(
 
 
 def _attn_cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
-                     device) -> dict:
+                     device, cross_len: int = 0) -> dict:
     shape = (batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim)
     if cfg.kv_cache_dtype == "int8":
         # per-(token, head) symmetric scales (see attention.quantize_kv)
         scale = (batch, capacity, cfg.num_kv_heads, 1)
-        return {"self": {
+        entry = {"self": {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
             "v_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
         }}
-    return {"self": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }}
+    else:
+        entry = {"self": {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }}
+    if cfg.encoder_layers > 0:
+        cross = (batch, cross_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        entry["cross"] = {
+            "k": torch.zeros(cross, dtype=dtype, device=device),
+            "v": torch.zeros(cross, dtype=dtype, device=device),
+        }
+    return entry
 
 
 def cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
-               device) -> Cache:
-    """Empty cache matching decode_step's expectations."""
+               device, cross_len: int = 0) -> Cache:
+    """Empty cache matching decode_step's expectations; an
+    encoder-decoder's attention entries hold a ``cross`` entry of
+    ``cross_len`` rows."""
 
     def entry(kind: str) -> dict:
-        block_specs(cfg, kind)  # raises for the kinds not ported
+        block_specs(cfg, kind)  # raises for an unknown kind
         if kind == "ssd":
             return ssd_cache_init(cfg, batch, dtype, device)
         if kind == "rec":
             return rglru_cache_init(cfg, batch, dtype, device)
-        return _attn_cache_init(cfg, batch, capacity, dtype, device)
+        return _attn_cache_init(cfg, batch, capacity, dtype, device,
+                                cross_len)
 
     return {
         "groups": {
@@ -379,8 +468,8 @@ def cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
 
 
 def pad_cache_to(cache: Cache, cfg: ModelConfig, capacity: int) -> Cache:
-    """Grow prefill K/V entries (length S) to ``capacity`` rows; state
-    entries, of a constant size, pass through."""
+    """Grow prefill K/V entries (length S) to ``capacity`` rows; cross
+    entries and state entries, of a constant size, pass through."""
 
     def fix(entry: dict) -> dict:
         if "self" not in entry:

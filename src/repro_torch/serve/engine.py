@@ -12,6 +12,11 @@ the same seed gives the same tokens in the port, but not the tokens of
 The JAX engine jits its decode step and donates the cache; here the
 prefill cache is grown once to its full capacity and each step writes its
 row in place.
+
+An encoder-decoder (seamless) is served through ``generate(prompts,
+src_embeds)``, the source's frame embeddings ``(B, S_enc, d_model)`` moved
+to the model's device; ``serve_queue`` passes no source, as the
+reference's does, so it raises ``KeyError('src_embeds')`` for such a model.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ class ServeEngine:
     def generate(
         self,
         prompts: np.ndarray,             # (B, S) int32, equal length
+        src_embeds=None,                 # (B, S_enc, D), encoder-decoders
         max_new_tokens: Optional[int] = None,
     ) -> np.ndarray:
         mcfg, dev = self.mcfg, self.device
@@ -70,6 +76,8 @@ class ServeEngine:
             np.ascontiguousarray(prompts, np.int32), device=dev)}
         if mcfg.rope_mode == "mrope":
             batch["positions"] = default_positions(mcfg, b, s, device=dev)
+        if src_embeds is not None:
+            batch["src_embeds"] = torch.as_tensor(src_embeds).to(dev)
         logits, cache = self.bundle.prefill_fn(self.params, batch)
         cache = tf.pad_cache_to(cache, mcfg, s + new)
 

@@ -7,9 +7,11 @@ JSON manifest, byte for byte the reference's, so that a directory written
 by either package loads in the other and hashes to the same swarm bundle:
 
 - one ``.npy`` a leaf of the reference's tree, named by its path with
-  ``/`` as ``__``. The port's per-layer parameters (``groups.<i>.<g>.<rest>``)
-  are stacked back into the reference's group leaves (``groups/<i>/<rest>``
-  holds every layer ``g``), the inverse of ``models/convert.py``'s name map;
+  ``/`` as ``__``. The port's per-layer parameters (``groups.<i>.<g>.<rest>``,
+  and an encoder's ``encoder.blocks.<g>.<rest>``) are stacked back into
+  the reference's leaves (``groups/<i>/<rest>`` and
+  ``encoder/blocks/<rest>`` hold every layer ``g``), the inverse of
+  ``models/convert.py``'s name map;
   an :class:`~repro_torch.train.optimizer.OptState` is stored under the
   reference's ``OptState`` paths (``opt/step``, ``opt/mu/...``,
   ``opt/nu/...``, ``opt/residual/...`` when there is one);
@@ -45,6 +47,7 @@ import torch
 
 from ..compat import host_tensor
 from ..core.metainfo import MetaInfo, assemble
+from ..models.convert import stacked
 
 Tree = Any
 
@@ -71,18 +74,30 @@ def _walk(tree: Tree, prefix: tuple = ()) -> Iterator[tuple[tuple, torch.Tensor]
                         f"tensor, not {type(tree).__name__}")
 
 
+def _layer_at(parts: tuple) -> int:
+    """Where the layer number stands in the path of a per-layer parameter
+    of a stacked leaf (``groups.<i>.<g>.<rest>`` or
+    ``encoder.blocks.<g>.<rest>``, under any prefix: the two parts before
+    it name the stack, as ``models/convert.py`` ``stacked`` says), or -1."""
+    for j in range(len(parts) - 2):
+        if stacked(list(parts[j:j + 2])) and parts[j + 2].isdigit():
+            return j + 2
+    return -1
+
+
 def reference_layout(tree: Tree) -> dict[str, tuple[list[torch.Tensor], bool]]:
     """The reference's leaf paths of ``tree``, each with its tensors and
     whether they are stacked: one tensor for a plain leaf, or the layers
-    ``g = 0, 1, ...`` of a group leaf (``groups.<i>.<g>.<rest>``), in
-    order, which the reference stacks along a leading axis."""
+    ``g = 0, 1, ...`` of a group leaf (``groups.<i>.<g>.<rest>``) or an
+    encoder leaf (``encoder.blocks.<g>.<rest>``), in order, which the
+    reference stacks along a leading axis."""
     out: dict[str, tuple[list[torch.Tensor], bool]] = {}
     stacked: dict[str, dict[int, torch.Tensor]] = {}
     for parts, t in _walk(tree):
-        j = parts.index("groups") if "groups" in parts else -1
-        if 0 <= j and j + 2 < len(parts) and parts[j + 2].isdigit():
-            key = _SEP.join(parts[:j + 2] + parts[j + 3:])
-            stacked.setdefault(key, {})[int(parts[j + 2])] = t
+        g = _layer_at(parts)
+        if g >= 0:
+            key = _SEP.join(parts[:g] + parts[g + 1:])
+            stacked.setdefault(key, {})[int(parts[g])] = t
         else:
             out[_SEP.join(parts)] = ([t], False)
     for key, layers in stacked.items():

@@ -48,7 +48,7 @@ def init_train_state(bundle: ModelBundle, tcfg: TrainConfig,
 
 
 def _slice(batch: dict, i: int, k: int) -> dict:
-    # every batch entry is batch-leading (tokens, targets)
+    # every batch entry is batch-leading (tokens, targets, src_embeds)
     out = {}
     for key, x in batch.items():
         x = torch.as_tensor(x)

@@ -37,13 +37,17 @@ from repro_torch.kernels.attention import (
 from repro_torch.kernels.attention import kernel as k4_kernel
 from repro_torch.models import attention as port_attn
 
-# the reference's five kernel cases (tests/test_kernels.py:25-29)
+# the reference's five kernel cases (tests/test_kernels.py:25-29), then
+# the encoder-decoder's cross attention at head dim 16: more queries than
+# keys, and fewer over a key length that is no multiple of the block
 CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, 0.0),
     (1, 192, 192, 4, 4, 32, True, 0, 50.0),    # softcap (gemma2)
     (2, 256, 256, 8, 2, 64, True, 64, 0.0),    # sliding window
     (1, 64, 320, 2, 1, 128, False, 0, 0.0),    # cross-shape, MQA
     (1, 130, 130, 2, 2, 16, True, 0, 0.0),     # non-multiple of block
+    (2, 96, 40, 4, 2, 16, False, 0, 0.0),      # cross, Sq > Skv
+    (1, 24, 75, 4, 2, 16, False, 0, 0.0),      # cross, Sq < Skv ragged
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -311,6 +315,22 @@ def test_flash_attention_gradient_vs_jax_vjp(b, s, hq, hkv, d, window, cap):
         lambda q, k, v: port_attn.flash_attention(
             q, k, v, causal=True, attn_softcap=cap) if window == 0 else
         port_attn.local_attention(q, k, v, window=window, attn_softcap=cap),
+        (q, k, v), g)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(a), _np(w), **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d", [c[:6] for c in CASES
+                                               if not c[6]])
+def test_non_causal_gradient_vs_jax_vjp(b, sq, skv, hq, hkv, d):
+    """The encoder's and the cross attention's backward (no mask, ``Sq``
+    against ``Skv``, both ragged against the reference's kv block)."""
+    q, k, v = _qkv(24, b, sq, skv, hq, hkv, d)
+    g = np.random.default_rng(25).normal(size=q.shape).astype(np.float32)
+    got, want = _vjp_both(
+        lambda q, k, v: jax_attn.flash_attention(q, k, v, causal=False,
+                                                 block_kv=16),
+        lambda q, k, v: port_attn.flash_attention(q, k, v, causal=False),
         (q, k, v), g)
     for name, a, w in zip("qkv", got, want):
         np.testing.assert_allclose(_np(a), _np(w), **GRAD_TOL, err_msg=name)

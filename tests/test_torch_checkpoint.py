@@ -9,7 +9,11 @@ in the other leaf-equal, the two directories must be the same bytes file
 by file, and ``checkpoint_metainfo`` must give the same info-hash. The
 bfloat16 state (``opt_state_dtype="bfloat16"``) exercises the ``<V2``
 leaves that ``np.save`` writes for an ``ml_dtypes`` array, which the port
-writes and reads without ``ml_dtypes``.
+writes and reads without ``ml_dtypes``. The reduced granite carries the
+round trips; the reduced seamless, whose encoder layers the port keeps one
+module each (``encoder.blocks.<l>``) and the reference stacks
+(``encoder/blocks/...``), is held to the same bytes and to loading in both
+packages.
 """
 
 import dataclasses
@@ -61,11 +65,10 @@ def _assert_same(a: dict, b: dict):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """The reduced granite in both packages, with the same parameters and
+def _pair(arch):
+    """The reduced ``arch`` in both packages, with the same parameters and
     the same moved bfloat16 optimizer state (step 3)."""
-    jcfg = jax_config("granite_3_2b").reduce()
+    jcfg = jax_config(arch).reduce()
     jtcfg = JaxTrainConfig(opt_state_dtype="bfloat16")
     jstate = jax_init_train_state(jax_build(jcfg), jtcfg, jax.random.key(0))
     rng = np.random.default_rng(0)
@@ -77,7 +80,7 @@ def pair():
                        nu=jax.tree.map(moved, jstate.params), residual=None)
     jtree = {"params": jstate.params, "opt": jopt}
 
-    pb = build_model(get_config("granite_3_2b").reduce(), "cpu")
+    pb = build_model(get_config(arch).reduce(), "cpu")
     tcfg = TrainConfig(opt_state_dtype="bfloat16")
 
     def port_tree():
@@ -94,6 +97,11 @@ def pair():
         return {"params": model, "opt": opt}
 
     return jtree, port_tree, pb, tcfg
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair("granite_3_2b")
 
 
 def _fresh(pb, tcfg, seed=7):
@@ -227,3 +235,37 @@ def test_trainer_state_is_stored_under_the_reference_paths(tmp_path, pair):
         assert leaves[f"opt/{part}/groups/0/attn/wq"]["shape"][0] == n
     assert [f.name for f in dataclasses.fields(JaxTrainConfig)] == \
         [f.name for f in dataclasses.fields(TrainConfig)]
+
+
+def test_an_encoder_decoder_checkpoint_is_the_reference_bytes(tmp_path):
+    """seamless: the encoder's per-layer modules stacked back into the
+    reference's ``encoder/blocks/...`` leaves, the cross blocks into the
+    groups', every file the same bytes and the same info-hash; each
+    package loads the other's save (float32 parameters into the
+    reference, whose loader refuses bfloat16 leaves)."""
+    jtree, port_tree, pb, tcfg = _pair("seamless_m4t_medium")
+    cfg = pb.cfg
+    jroot, proot = tmp_path / "jax" / "ckpt", tmp_path / "port" / "ckpt"
+    jdir = jckpt.save_checkpoint(jroot, 3, jtree)
+    tree = port_tree()
+    pdir = ckpt.save_checkpoint(proot, 3, tree)
+    jfiles, pfiles = _files(jdir), _files(pdir)
+    assert sorted(jfiles) == sorted(pfiles)
+    for name in jfiles:
+        assert pfiles[name] == jfiles[name], name
+    leaves = ckpt.load_manifest(proot, 3)["leaves"]
+    d, h = cfg.resolved_head_dim, cfg.num_heads
+    assert leaves["params/encoder/blocks/attn/wq"]["shape"] == [
+        cfg.encoder_layers, cfg.d_model, h, d]
+    assert leaves["opt/mu/encoder/blocks/ffn/w_up"]["dtype"] == "bfloat16"
+    assert leaves["params/groups/0/cross/wo"]["shape"] == [
+        cfg.group_count, h, d, cfg.d_model]
+    assert ckpt.checkpoint_metainfo(proot, 3)[0].info_hash == \
+        jckpt.checkpoint_metainfo(jroot, 3)[0].info_hash
+
+    restored, _ = ckpt.load_checkpoint(jroot, _fresh(pb, tcfg))
+    _assert_same(_leaves(restored), _jax_leaves(jtree))
+    ckpt.save_checkpoint(tmp_path / "f32", 1, {"params": tree["params"]})
+    like = {"params": jax.tree.map(jnp.zeros_like, jtree["params"])}
+    back, _ = jckpt.load_checkpoint(tmp_path / "f32", like)
+    _assert_same(_jax_leaves(back), _leaves({"params": tree["params"]}))

@@ -43,7 +43,9 @@ STATE = ["recurrentgemma_2b", "mamba2_1_3b"]
 # with a dense residual), reduced to 4 experts top 2
 MOE = ["dbrx_132b", "arctic_480b"]
 SERVED = DENSE + STATE + MOE
-NOT_PORTED = ["seamless_m4t_medium"]
+# the encoder-decoder, whose serving and training tests are
+# tests/test_torch_encoder.py's (its batches carry a source)
+ENCDEC = ["seamless_m4t_medium"]
 LAYER_TOL = dict(atol=1e-6, rtol=1e-6)
 DECODE_TOL = dict(atol=3e-4, rtol=1e-3)
 RNG = np.random.default_rng(0)
@@ -120,7 +122,7 @@ def test_embed_lookup_logits_and_softcap(tie):
 
 
 def test_spec_trees_match_the_reference():
-    for arch in SERVED:
+    for arch in SERVED + ENCDEC:
         port = tl.tree_leaves(port_tf.decoder_specs(port_config(arch)))
         ref = jax.tree_util.tree_flatten_with_path(
             jax_tf.decoder_specs(jax_config(arch)),
@@ -222,7 +224,7 @@ def pair():
     return get
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + ENCDEC)
 def test_params_from_jax_consumes_every_leaf(arch, pair):
     jb, params, pb, model = pair(arch)
     leaves = jax.tree.leaves(params)
@@ -251,6 +253,24 @@ def test_params_from_jax_consumes_every_leaf(arch, pair):
         np.testing.assert_array_equal(
             model.tail[str(i)]["ln1"].numpy(),
             np.asarray(params["tail"][str(i)]["ln1"]))
+    if cfg.encoder_layers:
+        # the encoder's stacked blocks and each decoder block's cross
+        # attention, split layer by layer
+        stacks = [(params["encoder"]["blocks"]["attn"],
+                   [model.encoder.blocks[g].attn
+                    for g in range(cfg.encoder_layers)]),
+                  (params["groups"]["0"]["cross"],
+                   [model.groups["0"][g].cross
+                    for g in range(cfg.group_count)])]
+        for leaves, layers in stacks:
+            assert set(leaves) == {"wq", "wk", "wv", "wo"}
+            for name, leaf in leaves.items():
+                for g, layer in enumerate(layers):
+                    np.testing.assert_array_equal(layer[name].numpy(),
+                                                  np.asarray(leaf)[g])
+        np.testing.assert_array_equal(
+            model.encoder.final_ln.numpy(),
+            np.asarray(params["encoder"]["final_ln"]))
     tree = jax.tree.map(np.asarray, params)
     extra = dict(tree, stray={"w": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="1 leaves with no parameter"):
@@ -475,13 +495,7 @@ def test_int8_decode_close_to_full_precision(arch):
     assert agree >= 0.5, agree
 
 
-# --------------------------------------------------------------------------- what is not ported
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_blocks_not_ported_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1 item [12]\b"):
-        build_model(port_config(arch).reduce(), "cpu")
+# --------------------------------------------------------------------------- devices
 
 
 def test_build_model_needs_cuda_unless_told_cpu():
@@ -491,7 +505,7 @@ def test_build_model_needs_cuda_unless_told_cpu():
         build_model(port_config("gemma2_2b").reduce())
 
 
-@pytest.mark.parametrize("arch", STATE + MOE)
+@pytest.mark.parametrize("arch", STATE + MOE + ENCDEC)
 def test_state_archs_need_cuda_unless_told_cpu(arch):
     """At full width, as a user builds them: the card by default."""
     if torch.cuda.is_available():

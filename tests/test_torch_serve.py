@@ -8,6 +8,8 @@ two MoE archs. Batch-order invariance is not asked of the MoE archs: the
 experts' capacity couples a batch's rows, in the reference too.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -214,12 +216,20 @@ def test_launch_serve_moe_archs_on_the_cpu(arch, capsys):
     assert len(outs) == 3 and all(o.shape == (3,) for o in outs)
 
 
-def test_launch_serve_refuses_what_waits():
-    """seamless (the encoder) waits for its port; ``--ckpt-dir`` (ported)
-    refuses a directory that holds no checkpoint."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        launch_serve.main(["--device", "cpu", "--arch",
-                           "seamless_m4t_medium"])
+def test_launch_serve_refuses_what_waits(monkeypatch):
+    """seamless fails where the reference's launcher does: its slot queue
+    carries no source, and the encoder asks for one
+    (``KeyError('src_embeds')``, in both packages); ``--ckpt-dir`` refuses
+    a directory that holds no checkpoint."""
+    from repro.launch import serve as jax_launch_serve
+
+    argv = ["--arch", "seamless_m4t_medium", "--requests", "2",
+            "--prompt-len", "8", "--new-tokens", "2"]
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    with pytest.raises(KeyError, match="src_embeds"):
+        jax_launch_serve.main()
+    with pytest.raises(KeyError, match="src_embeds"):
+        launch_serve.main([*argv, "--device", "cpu"])
     with pytest.raises(FileNotFoundError, match="no checkpoints under"):
         launch_serve.main(["--device", "cpu", "--ckpt-dir", "nowhere"])
     if not torch.cuda.is_available():
