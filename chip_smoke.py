@@ -140,6 +140,19 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     with the plain attention's probabilities split as K4 splits them, and
     through the float32 SIMT kernel on widened inputs (the replaced bf16
     design);
+11a. the serving path under a mesh: the same weights and requests
+    through ``serve_queue`` under ``set_mesh`` of a one-rank NCCL
+    ``make_test_mesh((1, 1), ("data", "model"))``, with the checks of
+    phase 11's run (K4 52 launches, the tokens twice, the replayed
+    decode); every decode step's attention through
+    ``decode_step_split_kv`` (its calls in the first run counted: 26 x 30
+    = 780), the bf16 greedy tokens logged beside phase 11's with the
+    number that differ, the wall and ms a decode step beside phase 11's;
+    then on the float32 weights, the teacher-forced decode through the
+    split-KV step past the 4,096 window within phase 11's band, which the
+    split-KV step without its window mask and the int8 cache through it
+    must miss, and the first batch's float32 greedy tokens equal to the
+    mesh-less engine's;
 12. the state serving paths, ``mamba2_1_3b`` (48 ssd layers, 4,600-token
     prompts: the last SSD chunk ragged) and ``recurrentgemma_2b`` (18 rec
     and 8 local-attention layers, 4,608-token prompts past the 2,048
@@ -172,6 +185,23 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     its parameters, loaded into a fresh serving model, must serve the
     in-memory parameters' greedy tokens; 3 more steps on one fixed batch
     must lower its loss;
+13a. the elastic restore: phase 13's checkpoint, before its directory
+    is deleted, through ``load_checkpoint(..., shardings=Partitioner(
+    mesh).tree_shardings(...))`` onto a one-rank NCCL (1, 1) ("data",
+    "model") mesh: the parameters and both moments, every leaf a DTensor
+    on that mesh with the rules' placements and equal to the trained
+    state's; the load seconds beside phase 13's in-place restore;
+13b. the mesh-aware train step: full-width ``gemma2_2b`` through
+    ``make_train_step(..., mesh=make_test_mesh((1, 1, 1), ("pod", "data",
+    "model")), pod_axis="pod")``, 2 steps on phase 13's first two batches
+    (2 microbatches, remat, bfloat16 moments), against 2 steps of the
+    mesh-less step from the same initial state: bit-identical states and
+    metrics, K4 104 and K4b 52 launches a step on the tensor cores,
+    seconds a step logged; then the cross-pod mean of one full-width
+    step's gradients over the one-rank NCCL pod group (quantise with one
+    scale a reference leaf, all-gather, dequantise, average) bit for bit
+    against the same arithmetic in plain torch, and ``q·scale + new
+    residual`` equal to ``grad + residual`` within float32 rounding;
 14. float32 gradient checks at full width and reduced depth (gemma2_2b 4
     layers, mamba2_1_3b 2, recurrentgemma_2b 3, the decays redrawn as in
     phase 12): one step's gradients through the kernels against the same
@@ -190,10 +220,11 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     must end bit-identical to an uninterrupted run; its last checkpoint
     through ``checkpoint_metainfo`` and ``restore_from_bundle`` must come
     back byte for byte;
-16. ``python -m repro_torch.launch.train`` (10 steps) and ``python -m
-    repro_torch.launch.serve --ckpt-dir`` on its checkpoint, on the card
-    at their reduced config, each printing its ``done step=`` or
-    ``restored from`` line;
+16. ``python -m repro_torch.launch.train`` (10 steps), then ``python -m
+    repro_torch.launch.serve --ckpt-dir`` and ``python -m
+    repro_torch.launch.elastic --ckpt-dir`` on its checkpoint, on the card
+    at their reduced config, each printing its ``done step=``, ``restored
+    from`` or ``resharded ... data cursor`` line;
 17. the MoE serving paths, ``dbrx_132b`` (16 experts, top 4) at 8 of its
     40 layers and ``arctic_480b`` (128 experts, top 2, a dense residual) at
     2 of its 35, at full width (capacity factor 1.25) from seed 21, each
@@ -2284,7 +2315,7 @@ def replay_decode(bundle, params, prompts, tokens, handoff=None, extra=None):
 
 
 def serve_and_check(bundle, params, reqs, counters,
-                    observe=contextlib.nullcontext):
+                    observe=contextlib.nullcontext, tokens_out=None):
     """``reqs`` through ``ServeEngine.serve_queue`` in ``SERVE_SLOTS``
     slots, ``SERVE_NEW`` greedy tokens each, every prefill and decode step
     timed. Each kernel counter of ``counters`` (name -> wrapper) is set to 0
@@ -2292,8 +2323,9 @@ def serve_and_check(bundle, params, reqs, counters,
     of its block kinds per prefill. Then: the call counts, tokens in the
     vocabulary, the same tokens from a second run, and the first batch's
     decode, replayed, picking the served tokens. ``observe`` is a context
-    factory around the first run alone. Returns the path's numbers and the
-    first batch's (prompts, served tokens) on the card."""
+    factory around the first run alone; ``tokens_out``, if given, gets the
+    first run's tokens appended. Returns the path's numbers and the first
+    batch's (prompts, served tokens) on the card."""
     import numpy as np
     import torch
 
@@ -2372,6 +2404,8 @@ def serve_and_check(bundle, params, reqs, counters,
              "engine")
     log(f"serving path {cfg.name}: the first batch's decode, replayed with "
         "the served tokens, picks them again")
+    if tokens_out is not None:
+        tokens_out.append(tokens)
     return {
         "arch": cfg.name, "wall_s": wall, "prefill_s": seconds["prefill"],
         "decode_s": sum(seconds["decode"]),
@@ -2427,7 +2461,12 @@ def run_serving_path(kernels, counters, device=None):
     rng = np.random.default_rng(SERVE_SEED)
     reqs = list(rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
                 .astype(np.int32))
-    numbers, prompts, served = serve_and_check(bundle, params, reqs, counters)
+    tokens: list = []
+    numbers, prompts, served = serve_and_check(bundle, params, reqs, counters,
+                                               tokens_out=tokens)
+    with phase(f"serving path {SERVE_ARCH} under a one-rank mesh"):
+        mesh_serving = mesh_serving_path(bundle, params, reqs, counters,
+                                         tokens[0], numbers, device)
 
     # Logits against plain references, in bfloat16 as served, then in
     # float32 (the same weights cast), where the rounding floor is low
@@ -2460,8 +2499,150 @@ def run_serving_path(kernels, counters, device=None):
         {"int8 KV cache": (int8,), **{
             name: (bundle32, None, lambda fault=fault: decode_fault(fault))
             for name, fault in DECODE_FAULTS.items()}})
+    with phase(f"serving path {SERVE_ARCH} float32 under a one-rank mesh"):
+        mesh_serving.update(mesh_f32_checks(bundle32, int8, params, prompts,
+                                            served, kernels, device))
     return {**numbers, **built, "prefill_logits_bf16": bf16_logits,
-            "prefill_logits_f32": f32_logits, "decode_f32": decode}
+            "prefill_logits_f32": f32_logits, "decode_f32": decode,
+            "mesh": mesh_serving}
+
+
+@contextlib.contextmanager
+def split_kv_calls(calls: list):
+    """Count the split-KV decode steps the model takes (one for each
+    self-attention layer a decode step under a split-KV mesh): each call
+    appends 1 to ``calls``."""
+    from repro_torch.models import attention
+
+    plain = attention.decode_step_split_kv
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+
+    with swapped(attention, "decode_step_split_kv", counting):
+        yield
+
+
+@contextlib.contextmanager
+def split_kv_window_dropped():
+    """The split-KV decode without its window mask (a control)."""
+    from repro_torch.models import attention
+
+    plain = attention.decode_step_split_kv
+
+    def faulty(*args, window=0, **kw):
+        return plain(*args, window=0, **kw)
+
+    with swapped(attention, "decode_step_split_kv", faulty):
+        yield
+
+
+def mesh_serving_path(bundle, params, reqs, counters, plain_tokens,
+                      plain_numbers, device=None):
+    """The serving path again under ``set_mesh`` of a one-rank (1, 1)
+    ("data", "model") mesh (NCCL on the card): ``serve_and_check`` with
+    its launch counts (K4 52) and checks, every decode step's attention
+    through ``decode_step_split_kv`` (its calls from the first run alone
+    must be one a self-attention layer a decode step: 26 x 30), the bf16
+    greedy tokens logged beside the mesh-less run's with the number that
+    differ, the wall and ms a decode step beside it, and the wall of a
+    third, warm run under the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.compat import set_mesh
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = bundle.cfg
+    mesh = make_test_mesh((1, 1), ("data", "model"), device)
+    calls: list = []
+    served: list = []
+    with set_mesh(mesh):
+        numbers, _, _ = serve_and_check(
+            bundle, params, reqs, counters,
+            observe=lambda: split_kv_calls(calls), tokens_out=served)
+    tokens = served[0]
+    # a third run under the mesh, warm: what the first run's wall spent
+    # once (the communicator, the first DTensors)
+    engine = ServeEngine(bundle, params, ServeConfig(max_new_tokens=SERVE_NEW))
+    with set_mesh(mesh):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.serve_queue(reqs, slots=SERVE_SLOTS)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+    steps = -(-len(reqs) // SERVE_SLOTS) * (SERVE_NEW - 1)
+    attn_layers = sum(k in ("attn", "local_attn") for k in layer_kinds(cfg))
+    want = steps * attn_layers
+    differ = int((tokens != plain_tokens).sum())
+    log(f"serving path {cfg.name} under a one-rank {dist.get_backend()} "
+        f"mesh (1, 1): split-KV decode calls {len(calls)} (counted "
+        f"{steps} steps x {attn_layers} layers = {want}); K4 launches "
+        f"{numbers['launches']}")
+    log(f"serving path {cfg.name} under the mesh: wall {numbers['wall_s']:.2f}s "
+        f"(mesh-less {plain_numbers['wall_s']:.2f}s; a warm third run "
+        f"{warm:.2f}s), prefill {sum(numbers['prefill_s']):.3f}s, decode "
+        f"{numbers['decode_s']:.3f}s, "
+        f"{numbers['decode_step_ms']:.2f} ms a decode step (mesh-less "
+        f"{plain_numbers['decode_step_ms']:.2f}); bf16 greedy tokens, "
+        f"{differ} of {tokens.size} differ from the mesh-less run's; first "
+        f"request's {tokens[0].tolist()} (mesh-less "
+        f"{plain_tokens[0].tolist()})")
+    if len(calls) != want:
+        fail(f"split-KV decode called {len(calls)} times, not {want}")
+    dist.destroy_process_group()
+    return {"split_kv_calls": len(calls), "tokens_differ": differ,
+            "launches": numbers["launches"], "routes": numbers["routes"],
+            "wall_s": numbers["wall_s"], "warm_wall_s": warm,
+            "prefill_s": numbers["prefill_s"], "decode_s": numbers["decode_s"],
+            "decode_step_ms": numbers["decode_step_ms"],
+            "peak_gib": numbers["peak_gib"]}
+
+
+def mesh_f32_checks(bundle32, int8, params, prompts, served, kernels,
+                    device=None):
+    """On the float32 weights under the one-rank mesh: the teacher-forced
+    decode through the split-KV step (cache lengths past the 4,096 window)
+    against the forward pass within ``DECODE_BAND_F32``, which the
+    split-KV step without its window mask and the int8 cache through the
+    split-KV step must miss, as phase 11's controls do; the float32 greedy
+    tokens of the first batch equal to the mesh-less engine's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.compat import set_mesh
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    mesh = make_test_mesh((1, 1), ("data", "model"), device)
+    calls: list = []
+    with set_mesh(mesh), split_kv_calls(calls):
+        # the int8 cache through the split-KV step is read as a control,
+        # as phase 11 reads it: lower precision, outside the float32 band
+        decode = teacher_forced_check(
+            bundle32, params, prompts, served, kernels, DECODE_BAND_F32,
+            {"int8 KV cache through split-KV": (int8,),
+             "split-KV window dropped": (bundle32, None,
+                                         split_kv_window_dropped)})
+        config = ServeConfig(max_new_tokens=SERVE_NEW)
+        got = ServeEngine(bundle32, params, config).generate(
+            prompts.cpu().numpy())
+    plain = ServeEngine(bundle32, params, config).generate(
+        prompts.cpu().numpy())
+    log(f"serving path float32 under the mesh: {len(calls)} split-KV calls "
+        f"in the decode checks; float32 greedy tokens of {got.shape[0]} "
+        f"requests under the mesh "
+        f"{'equal' if np.array_equal(got, plain) else 'NOT equal'} to the "
+        f"mesh-less engine's (first {got[0].tolist()})")
+    if not calls:
+        fail("the float32 decode under the mesh took no split-KV step")
+    if not np.array_equal(got, plain):
+        fail(f"float32 greedy tokens under the mesh differ from the "
+             f"mesh-less decode's in {int((got != plain).sum())} places")
+    dist.destroy_process_group()
+    return {"decode_f32": decode, "f32_tokens_equal": True}
 
 
 def prefill_logits_check(bundle, params, batches, kernels, control, band,
@@ -3738,6 +3919,9 @@ def run_training_path(counters, device=None, cfg=None, batch=None, seq=None,
             f"in {load_s:.2f}s, every leaf equal")
         del fresh
         torch.cuda.empty_cache()
+        with phase("elastic restore onto a one-rank mesh"):
+            elastic = elastic_restore_check(tmp, bundle, trained, tcfg,
+                                            load_s, device)
 
         # serving from it
         n_req, prompt, new = serve
@@ -3788,10 +3972,221 @@ def run_training_path(counters, device=None, cfg=None, batch=None, seq=None,
             "tokens_per_s": tokens / steady, "losses": losses,
             "k4b_ms_per_step": k4b_ms, "k4b_share": k4b_share, "launches": launches, "routes": routes,
             "peak_gib": peak / 2**30, "checkpoint_bytes": nbytes,
-            "save_s": saves[-1], "load_s": load_s,
+            "save_s": saves[-1], "load_s": load_s, "elastic": elastic,
             "fixed_batch_loss": [before, after],
             "traced_step": {"wall_ms": 1e3 * traced_s,
                             "device_ms": device_ms}}
+
+
+def elastic_restore_check(ckpt_dir, bundle, trained, tcfg, load_s,
+                          device=None):
+    """The training path's checkpoint restored by ``load_checkpoint(...,
+    shardings=)`` onto a one-rank (1, 1) ("data", "model") mesh (NCCL on
+    the card): the parameters and both moments, each leaf a DTensor on
+    that mesh with the placements ``Partitioner(mesh).tree_shardings``
+    gives it, equal to the trained state's leaf (the reference's stacked
+    layout); the load seconds beside the in-place restore's."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.launch.partitioning import Partitioner
+    from repro_torch.models.layers import abstract_params, tree_leaves
+    from repro_torch.train import load_checkpoint
+
+    mesh = make_test_mesh((1, 1), ("data", "model"), device)
+    moments = abstract_params(bundle.specs, getattr(torch, tcfg.opt_state_dtype))
+    like = {"params": bundle.abstract(), "opt": {"mu": moments, "nu": moments}}
+    axes = {"params": bundle.axes, "opt": {"mu": bundle.axes, "nu": bundle.axes}}
+    shardings = Partitioner(mesh).tree_shardings(like, axes)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored, extra = load_checkpoint(ckpt_dir, like, shardings=shardings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    want = reference_layout_of(trained)
+    got = dict(tree_leaves(restored))
+    placed = dict(tree_leaves(shardings))
+    if set(got) != set(want):
+        fail(f"elastic restore: leaves {sorted(set(got) ^ set(want))[:4]} "
+             "differ from the trained state's")
+    nbytes = 0
+    for key, leaf in got.items():
+        layers, stacked = want[key]
+        ref = torch.stack(layers) if stacked else layers[0]
+        if not (isinstance(leaf, DTensor) and leaf.device_mesh is mesh
+                and tuple(leaf.placements) == placed[key].placements
+                and torch.equal(leaf.to_local(), ref.detach())):
+            fail(f"elastic restore: {key} is not the trained leaf as a "
+                 f"DTensor on the mesh with placements "
+                 f"{placed[key].placements}")
+        nbytes += leaf.to_local().numel() * leaf.to_local().element_size()
+    log(f"elastic restore: {len(got)} leaves ({nbytes} bytes) onto a "
+        f"one-rank {dist.get_backend()} mesh (1, 1) as DTensors with the "
+        f"rules' placements in {seconds:.2f}s (the in-place restore "
+        f"{load_s:.2f}s), every leaf equal to the trained state's; data "
+        f"cursor {extra.get('data')}")
+    del restored, got
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"leaves": len(want), "bytes": nbytes, "load_s": seconds,
+            "in_place_load_s": load_s}
+
+
+def run_mesh_train_step(counters, device=None, cfg=None, batch=None,
+                        seq=None):
+    """Full-width gemma2_2b (or ``cfg``) through ``make_train_step(...,
+    mesh=make_test_mesh((1, 1, 1), ("pod", "data", "model")),
+    pod_axis="pod")`` for 2 steps on the training path's first two batches
+    (its corpus, 2 microbatches, remat, bfloat16 moments), against 2 steps
+    of the mesh-less step from the same initial state: the two final
+    states bit-identical (a one-rank reduction changes no bit), K4 and
+    K4b on the tensor cores, seconds a step logged. Then the cross-pod
+    mean of one full-width step's gradients over a one-rank NCCL pod
+    group (``train_step.compressed_pod_mean``: quantise, all-gather,
+    dequantise, average) bit for bit against the same arithmetic in plain
+    torch, and ``q·scale + new residual`` equal to ``grad + residual``
+    within float32 rounding."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import CorpusSpec, HostBatcher, ShardedCorpus
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.checkpoint import reference_key
+    from repro_torch.train.train_step import (
+        _grads_and_metrics, compressed_pod_mean,
+    )
+
+    cfg = cfg or get_config(TRAIN_ARCH)
+    batch, seq = batch or TRAIN_BATCH, seq or TRAIN_SEQ
+    steps = 2
+    bundle = build_model(cfg, device)
+    dev = bundle.device
+    tcfg = TrainConfig(**TRAIN_CONFIG)
+    corpus = ShardedCorpus(CorpusSpec(
+        num_shards=2, tokens_per_shard=(TRAIN_STEPS + 2) * batch * (seq + 1),
+        seed=TRAIN_SEED))
+    batcher = HostBatcher([corpus.shard_tokens(i) for i in range(2)],
+                          batch_size=batch, seq_len=seq)
+    batches = [{"tokens": torch.from_numpy(b.tokens),
+                "targets": torch.from_numpy(b.targets)}
+               for b in batcher.take(steps)]
+
+    def trained(step_fn):
+        state = init_train_state(bundle, tcfg, torch.Generator(
+            device=dev).manual_seed(TRAIN_SEED))
+        clock = StepClock(step_fn)
+        metrics = [clock(state, b)[1] for b in batches]
+        return clock.last, metrics, clock.seconds
+
+    plain, plain_metrics, plain_s = trained(make_train_step(bundle, tcfg))
+    snapshot = {k: [t.detach().cpu() for t in ts] for k, (ts, _) in
+                reference_layout_of(plain).items()}
+    del plain
+    torch.cuda.empty_cache()
+
+    mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"), device)
+    for w in counters.values():
+        w.launches = 0
+    routed = {n: collections.Counter(w.route_launches)
+              for n, w in counters.items() if hasattr(w, "route_launches")}
+    state, metrics, seconds = trained(
+        make_train_step(bundle, tcfg, mesh=mesh, pod_axis="pod"))
+    launches = {n: w.launches for n, w in counters.items()}
+    routes = {n: by_route(collections.Counter(counters[n].route_launches)
+                          - before) for n, before in routed.items()}
+    attn_layers = sum(k in ("attn", "local_attn") for k in layer_kinds(cfg))
+    want = {"flash_attention": 2 * steps * tcfg.microbatches * attn_layers,
+            "flash_attention_bwd": steps * tcfg.microbatches * attn_layers,
+            "flash_attention_bwd_replaced": 0}
+    same = all(torch.equal(t.cpu(), snapshot[k][i])
+               for k, (ts, _) in reference_layout_of(state).items()
+               for i, t in enumerate(ts)) and all(
+        torch.equal(a[k].cpu(), b[k].cpu())
+        for a, b in zip(metrics, plain_metrics) for k in a)
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"mesh train step {cfg.name}: {steps} steps of {batch} x {seq} tokens "
+        f"({tcfg.microbatches} microbatches) on a one-rank "
+        f"{dist.get_backend()} mesh (pod, data, model) = (1, 1, 1): step "
+        f"seconds {[round(t, 3) for t in seconds]} (mesh-less "
+        f"{[round(t, 3) for t in plain_s]}), losses {losses}; launches "
+        f"{launches} (counted {want}), by route {routes}; the final state "
+        f"and metrics {'bit-identical' if same else 'NOT bit-identical'} to "
+        f"the mesh-less step's")
+    if launches != want:
+        fail(f"mesh train step: launches {launches}, not {want}")
+    for name, r in routes.items():
+        wrong = {k: n for k, n in r.items()
+                 if DTYPE_ROUTE.get(k.split("/")[0]) != k.split("/")[1]}
+        if wrong or sum(r.values()) != launches[name]:
+            fail(f"mesh train step: {name} launches by route {r}")
+    if not same:
+        fail("mesh train step: the state after 2 steps on the one-rank mesh "
+             "differs from the mesh-less step's")
+    del snapshot
+
+    # the cross-pod mean of one full-width step's gradients, pod group of 1
+    grads, _ = _grads_and_metrics(bundle, tcfg, state.params, batches[0])
+    del state
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    residual = {n: 1e-3 * g.float().std() * torch.randn(
+        g.shape, generator=gen, device=dev) for n, g in grads.items()}
+    before = {n: r.clone() for n, r in residual.items()}
+    group = mesh.get_group("pod")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mean = compressed_pod_mean(grads, residual, group, 1)
+    torch.cuda.synchronize()
+    mean_s = time.perf_counter() - t
+    leaves: dict = {}
+    for name in grads:
+        leaves.setdefault(reference_key(name), []).append(name)
+    exact, worst = True, 0.0
+    for key, names in leaves.items():
+        g32 = torch.stack([grads[n] for n in names]).float() + torch.stack(
+            [before[n] for n in names])
+        scale = torch.clamp(g32.abs().max(), min=1e-30) / 127.0
+        q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+        deq = q.to(torch.float32) * scale
+        for i, n in enumerate(names):
+            exact &= torch.equal(mean[n], deq[i])
+            back = deq[i] + residual[n]
+            worst = max(worst, float(((back - g32[i]).abs()
+                                      / g32.abs().max()).max()))
+        del g32, q, deq
+    log(f"cross-pod mean over a one-rank {dist.get_backend()} pod group: "
+        f"{len(grads)} gradients in {len(leaves)} reference leaves (one "
+        f"scale a leaf) quantised, all-gathered, dequantised and averaged "
+        f"in {mean_s:.3f}s, {'bit-exact' if exact else 'NOT bit-exact'} "
+        f"with the same arithmetic in plain torch; q x scale + new residual "
+        f"against grad + residual: worst |diff| {worst:.3g} of the leaf's "
+        f"largest")
+    if not exact:
+        fail("cross-pod mean differs from its plain arithmetic")
+    if worst > 2.0 ** -22:
+        fail(f"q x scale + new residual differs from grad + residual by "
+             f"{worst} of the leaf's largest (float32 rounding wanted)")
+    del grads, residual, before, mean
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "step_s": seconds, "plain_step_s": plain_s,
+            "losses": losses, "launches": launches, "routes": routes,
+            "bit_identical": same, "pod_mean_s": mean_s,
+            "pod_mean_exact": exact, "residual_identity": worst}
+
+
+def reference_layout_of(state):
+    """A train state's parameters and moments in the reference's layout."""
+    from repro_torch.train.checkpoint import reference_layout
+
+    return reference_layout({"params": state.params, "opt": {
+        "mu": state.opt.mu, "nu": state.opt.nu}})
 
 
 def crash_restart_check(device=None, cfg=None, spec=None):
@@ -3883,10 +4278,11 @@ def crash_restart_check(device=None, cfg=None, spec=None):
 
 def run_launchers(device=None):
     """``python -m repro_torch.launch.train`` for a few steps into a
-    temporary directory and ``python -m repro_torch.launch.serve
-    --ckpt-dir`` on it, on the card at their reduced config (``device``,
-    if given, is passed on as ``--device``); each must exit 0 and print its
-    ``done step=`` or ``restored from`` line."""
+    temporary directory, then ``python -m repro_torch.launch.serve
+    --ckpt-dir`` and ``python -m repro_torch.launch.elastic --ckpt-dir``
+    on it, on the card at their reduced config (``device``, if given, is
+    passed on as ``--device``); each must exit 0 and print its ``done
+    step=``, ``restored from`` or ``resharded ... data cursor`` line."""
     extra = [] if device is None else ["--device", str(device)]
     with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3897,7 +4293,9 @@ def run_launchers(device=None):
                            "--seq-len", "64", "--ckpt-dir", tmp],
                  "done step=10 restarts=0"),
                 ("serve", ["repro_torch.launch.serve", "--arch", TRAIN_ARCH,
-                           "--ckpt-dir", tmp], f"restored from {tmp}")):
+                           "--ckpt-dir", tmp], f"restored from {tmp}"),
+                ("elastic", ["repro_torch.launch.elastic", "--arch",
+                             TRAIN_ARCH, "--ckpt-dir", tmp], "data cursor")):
             t = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", *argv, *extra],
                                   cwd=ROOT,
@@ -3906,7 +4304,8 @@ def run_launchers(device=None):
             out[name] = time.perf_counter() - t
             log(f"launch.{name} (reduced config, on the card) exited "
                 f"{proc.returncode} in {out[name]:.1f}s:\n{proc.stdout.strip()}")
-            if proc.returncode != 0 or want not in proc.stdout:
+            if proc.returncode != 0 or want not in proc.stdout or (
+                    name == "elastic" and "resharded" not in proc.stdout):
                 fail(f"launch.{name}: exit {proc.returncode}, no '{want}' "
                      f"line:\n{proc.stdout}\n{proc.stderr}")
         return out
@@ -5210,6 +5609,10 @@ def main() -> int:
     with phase(f"serving path {SERVE_ARCH} with its checks"):
         serving = run_serving_path((k4, k5, k6), counters)
     log("serving path outcome: " + json.dumps(serving))
+    log(f"split-KV decode calls under the mesh: "
+        f"{serving['mesh']['split_kv_calls']}")
+    log("serving under a one-rank mesh outcome: "
+        + json.dumps(serving["mesh"]))
     paths = {SERVE_ARCH: serving["launches"]}
     routes = {SERVE_ARCH: serving["routes"]}
     for arch in STATE_SERVING:
@@ -5226,6 +5629,10 @@ def main() -> int:
     with phase(f"training path {TRAIN_ARCH} with its checkpoint"):
         training = run_training_path(train_counters)
     log("training path outcome: " + json.dumps(training))
+    log("elastic restore outcome: " + json.dumps(training["elastic"]))
+    with phase(f"mesh-aware train step {TRAIN_ARCH}"):
+        mesh_training = run_mesh_train_step(train_counters)
+    log("mesh-aware train step outcome: " + json.dumps(mesh_training))
     with phase("float32 gradient checks"):
         grads = gradient_checks((k4, k5, k6), {**counters, **train_counters})
     log("gradient checks outcome: " + json.dumps(grads))
@@ -5273,11 +5680,18 @@ def main() -> int:
         moe_training["launches"]["flash_attention"])
     k4_record["launches_by_path"][encdec_train_path] = (
         encdec_training["launches"]["flash_attention"])
+    mesh_serve_path = f"{SERVE_ARCH} under a mesh"
+    mesh_train_path = f"train {TRAIN_ARCH} under a mesh"
+    k4_record["launches_by_path"][mesh_serve_path] = (
+        serving["mesh"]["launches"]["flash_attention"])
+    k4_record["launches_by_path"][mesh_train_path] = (
+        mesh_training["launches"]["flash_attention"])
     k4b_record["launches_by_path"] = {
         f"train {TRAIN_ARCH}": training["launches"]["flash_attention_bwd"],
         moe_train_path: moe_training["launches"]["flash_attention_bwd"],
         encdec_train_path:
-            encdec_training["launches"]["flash_attention_bwd"]}
+            encdec_training["launches"]["flash_attention_bwd"],
+        mesh_train_path: mesh_training["launches"]["flash_attention_bwd"]}
     train_path = f"train {TRAIN_ARCH}"
     for record, wrapper in ((k4_record, k4.flash_attention_cuda),
                             (k5_record, k5.ssd_chunked_cuda)):
@@ -5292,6 +5706,12 @@ def main() -> int:
             by_path[encdec_train_path] = (
                 encdec_training["routes"]["flash_attention"],
                 encdec_training["launches"]["flash_attention"])
+            by_path[mesh_serve_path] = (
+                serving["mesh"]["routes"]["flash_attention"],
+                serving["mesh"]["launches"]["flash_attention"])
+            by_path[mesh_train_path] = (
+                mesh_training["routes"]["flash_attention"],
+                mesh_training["launches"]["flash_attention"])
         record["routes"] = check_routes(
             "K4" if record is k4_record else "K5", wrapper.route_launches,
             by_path)
@@ -5303,7 +5723,10 @@ def main() -> int:
                           moe_training["launches"]["flash_attention_bwd"]),
          encdec_train_path: (
              encdec_training["routes"]["flash_attention_bwd"],
-             encdec_training["launches"]["flash_attention_bwd"])})
+             encdec_training["launches"]["flash_attention_bwd"]),
+         mesh_train_path: (
+             mesh_training["routes"]["flash_attention_bwd"],
+             mesh_training["launches"]["flash_attention_bwd"])})
     if k4.flash_attention_bwd_replaced_cuda.launches:
         fail(f"the SIMT backward that K4b's tensor-core route replaced was "
              f"launched {k4.flash_attention_bwd_replaced_cuda.launches} "

@@ -5,10 +5,20 @@ Takes the role that ``repro/jax_compat.py`` (``HAS_PALLAS``,
 one difference: nothing here degrades. A float32 backend asked to run
 without CUDA raises instead of falling back to another path; the caller
 who wants the CPU says so with ``device="cpu"``.
+
+It also holds the ambient mesh, the counterpart of the reference's
+``set_mesh`` and ``get_abstract_mesh``: :func:`set_mesh` installs a mesh
+for the code it wraps and :func:`current_mesh` reads it (None outside).
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
+``mesh_dim_names`` are taken from ``("pod", "data", "model")``, or an
+:class:`AbstractMesh`: axis names and sizes with no ranks behind them,
+which the partitioning rules read for meshes no test box has (16 x 16, 2 x
+16 x 16). :func:`mesh_axes` reads either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
@@ -65,3 +75,46 @@ def host_tensor(data) -> torch.Tensor:
         if isinstance(data, np.ndarray):
             return torch.from_numpy(np.ascontiguousarray(data))
         return torch.frombuffer(memoryview(data).cast("B"), dtype=torch.uint8)
+
+
+# --------------------------------------------------------------------------- meshes
+
+
+class AbstractMesh:
+    """Axis names and sizes with no ranks behind them (the reference's
+    ``abstract_mesh``): ``shape`` and ``mesh_dim_names`` as a
+    ``DeviceMesh`` has them, and no process groups."""
+
+    def __init__(self, shape, axis_names):
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(axis_names)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.mesh_dim_names} differ in rank")
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({mesh_axes(self)})"
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or an
+    :class:`AbstractMesh` (the JAX mesh's ``shape``)."""
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+_MESHES: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Install ``mesh`` as the ambient mesh for the code inside."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh():
+    """The innermost mesh installed by :func:`set_mesh`, or None."""
+    return _MESHES[-1] if _MESHES else None

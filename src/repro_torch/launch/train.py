@@ -16,10 +16,12 @@ host, e.g.::
     python -m repro_torch.launch.train --arch gemma2_2b --crash-at 12
     python -m repro_torch.launch.train --arch dbrx_132b --device cpu --steps 6
 
-One process, one device: the reference's multi-host runtime and mesh have
-no counterpart yet (``ROADMAP.md`` queue 1 item 3), and
-``--grad-compression int8`` keeps the error-feedback residual in the
-optimizer state but, as the reference on one pod, reduces nothing in int8.
+One process, one device, as the reference's driver runs on a CPU
+container: the mesh-aware and compressed steps are
+``train.make_train_step(..., mesh=, pod_axis=)`` on a mesh of
+:mod:`.mesh`, and ``--grad-compression int8`` here keeps the
+error-feedback residual in the optimizer state but, as the reference on
+one pod, reduces nothing in int8.
 """
 
 from __future__ import annotations

@@ -17,9 +17,17 @@ The weight layouts are the JAX package's (``wq (d, hq, h)``, ``wk``/``wv
 whatever the compute dtype. Cross attention (an encoder-decoder's
 decoder reading the encoder's memory) takes the sequence path through K4,
 non-causal, with the query length the decoder's and the key length the
-source's; its decode step reads the cross cache and writes nothing. The
-split-KV decode of a mesh is not ported yet (``ROADMAP.md`` queue 1 item
-3).
+source's; its decode step reads the cross cache and writes nothing.
+
+Under a mesh (:func:`repro_torch.compat.set_mesh`) whose ``"model"`` axis
+divides a self-attention cache's sequence capacity, a decode step takes
+:func:`decode_step_split_kv`, the reference's flash-decoding on the mesh:
+each ``model`` rank holds a stripe of ``capacity / n`` cache rows (the
+cache's leaves are DTensors, ``Shard(1)`` over ``model``, made by
+:func:`striped`), the owning rank writes the new token, every rank
+computes the partial max, sum and output over its stripe, and an
+all-reduce MAX and two all-reduce SUMs over the ``model`` group combine
+them. It is plain torch, as the reference's ``jnp`` under ``shard_map``.
 """
 
 from __future__ import annotations
@@ -27,7 +35,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..compat import current_mesh, mesh_axes
 from ..configs.base import ModelConfig
 from ..kernels.attention import ops as attn_ops
 from .layers import (
@@ -184,6 +195,121 @@ def _cache_is_int8(cache: dict) -> bool:
     return "k_scale" in cache
 
 
+# --------------------------------------------------------------------------- split-KV decode
+
+
+def split_kv_layout(capacity: int):
+    """``(mesh, n, rank)`` when the ambient mesh has a ``"model"`` axis of
+    ``n`` ranks that divides ``capacity`` (``rank`` this process's place
+    on it), else None: the reference's ``_split_kv_available`` test."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    n = mesh_axes(mesh).get("model")
+    if n is None or capacity % n or capacity < n:
+        return None
+    return mesh, n, mesh.get_local_rank("model")
+
+
+def _split_kv_available(cache_k: torch.Tensor) -> bool:
+    """True when the ambient mesh has a 'model' axis that divides the
+    cache's global sequence capacity (a DTensor's global shape)."""
+    return split_kv_layout(cache_k.shape[1]) is not None
+
+
+def striped(rows: torch.Tensor, capacity: int) -> torch.Tensor:
+    """A self-attention cache leaf of ``capacity`` rows whose first rows
+    are ``rows`` (B, S <= capacity, ...), the rest zeros. Under a split-KV
+    mesh only this rank's stripe of it is made, rows ``rank * capacity / n``
+    on, as a DTensor of the global shape (``Shard(1)`` on ``model``,
+    ``Replicate()`` on the other mesh dims); otherwise the whole leaf
+    (``rows`` itself when it has ``capacity`` rows)."""
+    layout = split_kv_layout(capacity)
+    if layout is None:
+        pad_n = capacity - rows.shape[1]
+        if pad_n <= 0:
+            return rows
+        return torch.cat([rows, rows.new_zeros(
+            (rows.shape[0], pad_n, *rows.shape[2:]))], dim=1)
+    mesh, n, rank = layout
+    s_loc = capacity // n
+    local = rows.new_zeros((rows.shape[0], s_loc, *rows.shape[2:]))
+    mine = rows[:, rank * s_loc:(rank + 1) * s_loc]
+    local[:, :mine.shape[1]] = mine
+    placements = [Shard(1) if name == "model" else Replicate()
+                  for name in mesh.mesh_dim_names]
+    return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+def decode_step_split_kv(
+    q: torch.Tensor,             # (B, 1, Hq, D)
+    k_new: torch.Tensor,         # (B, 1, Hkv, D)
+    v_new: torch.Tensor,
+    cache: dict,                 # k/v DTensors (B, Smax, Hkv, D), Shard(1) on 'model'
+    cache_len: int,
+    *,
+    window: int = 0,
+    attn_softcap: float = 0.0,
+) -> tuple[torch.Tensor, dict]:
+    """One decode step with the KV ring sharded over 'model' by sequence
+    (``repro/models/attention.py`` ``decode_step_split_kv``).
+
+    The rank whose stripe holds row ``cache_len - 1`` writes the new
+    token there (quantized for an int8 cache); the others write nothing.
+    Every rank computes float32 scores over its stripe (the softcap, then
+    the length and window masks by global row), its partial max, and
+    after an all-reduce MAX over ``model``, ``exp(s - m)``, whose sum and
+    product with V two all-reduce SUMs add up; the output is ``o /
+    max(l, 1e-37)``. An int8 cache is dequantized straight to float32.
+    Returns (out, cache), the cache written in place."""
+    mesh = current_mesh()
+    n = mesh_axes(mesh)["model"]
+    group = mesh.get_group("model")
+    rank = mesh.get_local_rank("model")
+    smax = cache["k"].shape[1]
+    s_loc = smax // n
+    start = rank * s_loc
+    local = {name: x.to_local() for name, x in cache.items()}  # views
+    tgt = (cache_len - 1) - start
+    int8 = _cache_is_int8(cache)
+    if 0 <= tgt < s_loc:
+        if int8:
+            (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
+            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            new = {"k": k_new, "v": v_new}
+        for name, x in new.items():
+            local[name][:, tgt:tgt + 1] = x
+    if int8:
+        kf = dequantize_kv(local["k"], local["k_scale"])
+        vf = dequantize_kv(local["v"], local["v_scale"])
+    else:
+        kf = local["k"].to(torch.float32)
+        vf = local["v"].to(torch.float32)
+
+    b, _, hq, d = q.shape
+    hkv = kf.shape[2]
+    g = hq // hkv
+    qg = q.to(torch.float32).reshape(b, 1, hkv, g, d) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+    if attn_softcap > 0:
+        s = softcap(s, attn_softcap)
+    k_idx = start + torch.arange(s_loc, device=q.device)
+    mask = k_idx < cache_len
+    if window > 0:
+        mask &= k_idx >= cache_len - window
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    dist.all_reduce(l, group=group)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    dist.all_reduce(o, group=group)
+    out = o / torch.clamp(l, min=1e-37).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, 1, hq, d).to(q.dtype), cache
+
+
 # --------------------------------------------------------------------------- block-level API
 
 
@@ -221,7 +347,8 @@ def attention_step(
 ) -> tuple[torch.Tensor, dict]:
     """Single decode step; returns (out, cache). The JAX package returns a
     new cache (its old one donated); here row ``cache_len - 1`` of the
-    preallocated cache is written in place and the same dict returned. A
+    preallocated cache is written in place and the same dict returned;
+    under a split-KV mesh the step is :func:`decode_step_split_kv`. A
     ``cross`` step projects q without RoPE and reads every row of the
     cross cache (the encoder's K/V), writing nothing."""
     q = project_q(params, x, cfg, position, rope=not cross)
@@ -231,6 +358,11 @@ def attention_step(
         return o_proj(params, ctx), cache
     k, v = project_kv(params, x, cfg, position)
     window = cfg.window if local else 0
+    if _split_kv_available(cache["k"]):
+        ctx, cache = decode_step_split_kv(
+            q, k, v, cache, cache_len,
+            window=window, attn_softcap=cfg.attn_logit_softcap)
+        return o_proj(params, ctx), cache
     idx = cache_len - 1
     if _cache_is_int8(cache):
         kq, ksc = quantize_kv(k)

@@ -4,11 +4,13 @@
 Every parameter leaf is declared by a :class:`ParamSpec` carrying its
 logical axes, in the JAX package's nested-dict tree, so the two packages'
 parameter trees have the same paths, shapes and init rule. The logical
-axes name how the JAX package shards a leaf on a mesh; the port runs on
-one card and keeps them only as documentation. The JAX package's sharding
-helpers (``constrain``, ``constrain_bsd``, ``constrain_bshd``,
-``gather_sp``) have no counterpart here: there is no mesh on one card
-(``ROADMAP.md`` queue 1 item 3).
+axes name how a leaf is sharded on a mesh: :func:`param_axes` reads them
+and :mod:`repro_torch.launch.partitioning` turns them into placements;
+:func:`abstract_params` gives the tree as meta tensors, with no
+allocation. The JAX package's layout hints to XLA's partitioner
+(``constrain``, ``constrain_bsd``, ``constrain_bshd``, ``gather_sp``)
+have no counterpart yet: the dry-run is their one caller that depends on
+layout, and it waits for its own slice (``ROADMAP.md`` queue 1 item 3).
 
 The functions take and return tensors of the caller's dtype and compute
 where the reference computes (norms, RoPE and softcaps in float32).
@@ -73,6 +75,19 @@ def stack_specs(specs: Any, n: int) -> Any:
         lambda s: ParamSpec((n, *s.shape), (LAYERS, *s.axes), s.init, s.scale),
         specs,
     )
+
+
+def param_axes(specs: Any) -> Any:
+    """The tree of each leaf's logical axes."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+def abstract_params(specs: Any, dtype: torch.dtype) -> Any:
+    """The tree as tensors on the meta device (shape and dtype, no
+    allocation): the counterpart of the reference's ``ShapeDtypeStruct``
+    tree."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
 
 
 def _std(spec: ParamSpec) -> float:

@@ -25,6 +25,12 @@ with gradients on, through each kernel's ``torch.autograd.Function``
 config says. Serving's ``forward_fn``, ``prefill_fn`` and ``decode_fn``
 run under ``torch.no_grad()``. :mod:`repro_torch.train` drives the loss.
 
+For a mesh, ``axes`` is the reference parameter tree's logical axes,
+``abstract()`` the same tree as meta tensors in the parameters' dtype (no
+allocation), and ``cache_axes(batch, capacity, cross_len)`` the logical
+axes of the port's cache tree; :class:`~repro_torch.launch.partitioning.
+Partitioner` turns either into placements.
+
 An encoder-decoder (seamless) reads its source from the batch:
 ``batch["src_embeds"]`` (B, S_enc, d_model), the frontend's embeddings,
 cast to the compute dtype and run through the encoder, whose output every
@@ -39,11 +45,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..compat import resolve_device
+from ..compat import resolve_device, set_mesh
 from ..configs.base import ModelConfig
 from . import transformer as tf
 from .convert import draw_into
-from .layers import ParamTree
+from .layers import ParamTree, abstract_params, param_axes
 from .moe import EPContext
 
 Params = Any
@@ -96,6 +102,9 @@ class ModelBundle:
     prefill_fn: Callable[..., tuple[torch.Tensor, Cache]]
     decode_fn: Callable[..., tuple[torch.Tensor, Cache]]
     cache_init: Callable[..., Cache]
+    axes: Any = None
+    cache_axes: Optional[Callable[..., Any]] = None
+    abstract: Optional[Callable[[], Any]] = None
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -175,8 +184,37 @@ def build_model(cfg: ModelConfig, device=None,
     def cache_init(batch: int, capacity: int, cross_len: int = 0) -> Cache:
         return tf.cache_init(cfg, batch, capacity, cdtype, dev, cross_len)
 
+    def cache_axes_fn(batch: int, capacity: int, cross_len: int = 0) -> Any:
+        """Logical axes of the cache's leaves, by the reference's leaf rules
+        (``repro/models/model.py:137-163``) on the port's cache tree (one
+        entry a layer, so no ``layers`` axis), for the global shapes."""
+        with set_mesh(None):
+            cache = tf.cache_init(cfg, batch, capacity, cdtype, "meta",
+                                  cross_len)
+
+        def entry_axes(entry: dict) -> dict:
+            out = {}
+            for key, leaf in entry.items():
+                if isinstance(leaf, dict):        # "self" / "cross"
+                    out[key] = {name: ("batch", "kv_seq", "kv_heads", "head")
+                                for name in leaf}
+                elif key == "conv":               # (B, W-1, C)
+                    out[key] = ("batch", None, "ssm_inner")
+                elif leaf.dim() == 4:             # ssd state (B, H, P, N)
+                    out[key] = ("batch", "ssm_heads", None, None)
+                else:                             # rglru state (B, W)
+                    out[key] = ("batch", "lru")
+            return out
+
+        return {
+            "groups": {i: [entry_axes(e) for e in entries]
+                       for i, entries in cache["groups"].items()},
+            "tail": {i: entry_axes(e) for i, e in cache["tail"].items()},
+        }
+
     return ModelBundle(
         cfg=cfg, specs=specs, device=dev, init=init, skeleton=skeleton,
         loss_fn=loss_fn, forward_fn=forward_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
-        cache_init=cache_init,
+        cache_init=cache_init, axes=param_axes(specs), cache_axes=cache_axes_fn,
+        abstract=lambda: abstract_params(specs, pdtype),
     )

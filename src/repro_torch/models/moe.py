@@ -37,7 +37,10 @@ sums the ranks' partial gradients over the axes that split the work, so
 that every rank ends with the gradient the local path gives (the aux
 losses, equal on the ranks of the expert or model axis, enter that sum
 once through :class:`_Sum`'s divisor). Sharded parameters, where each rank
-keeps only its own experts, wait for the port of ``launch/mesh.py``.
+keeps only its own experts, wait for the dry-run slice (``ROADMAP.md``
+queue 1 item 3): the mesh (:mod:`repro_torch.launch.mesh`) is ported, and
+its rules say which experts a rank would keep, but every rank is handed
+them all.
 
 Aux losses (load balance and router z) are computed from the full router
 distribution and averaged over the batch axes.
@@ -54,6 +57,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..compat import mesh_axes
 from ..configs.base import ModelConfig
 from .layers import EMBED, EXPERTS, EXPERTS_DP, MLP, ParamSpec, mlp_apply, mlp_specs
 
@@ -65,11 +69,6 @@ class EPContext:
     mesh: Optional[Any] = None      # torch.distributed DeviceMesh
     ep_axis: str = "model"
     dp_axes: tuple[str, ...] = ("data",)
-
-
-def mesh_axes(mesh) -> dict[str, int]:
-    """``{axis name: size}`` of a ``DeviceMesh`` (the JAX mesh's ``shape``)."""
-    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
 def moe_specs(cfg: ModelConfig) -> dict:

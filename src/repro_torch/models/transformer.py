@@ -418,20 +418,26 @@ def decode_step(
 
 def _attn_cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
                      device, cross_len: int = 0) -> dict:
-    shape = (batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, 0, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def rows(shape, dtype):
+        # capacity zero rows, or this rank's stripe of them (attn.striped)
+        return attn.striped(torch.zeros(shape, dtype=dtype, device=device),
+                            capacity)
+
     if cfg.kv_cache_dtype == "int8":
         # per-(token, head) symmetric scales (see attention.quantize_kv)
-        scale = (batch, capacity, cfg.num_kv_heads, 1)
+        scale = (batch, 0, cfg.num_kv_heads, 1)
         entry = {"self": {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
-            "v_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
+            "k": rows(shape, torch.int8),
+            "v": rows(shape, torch.int8),
+            "k_scale": rows(scale, torch.bfloat16),
+            "v_scale": rows(scale, torch.bfloat16),
         }}
     else:
         entry = {"self": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "k": rows(shape, dtype),
+            "v": rows(shape, dtype),
         }}
     if cfg.encoder_layers > 0:
         cross = (batch, cross_len, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -446,7 +452,8 @@ def cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
                device, cross_len: int = 0) -> Cache:
     """Empty cache matching decode_step's expectations; an
     encoder-decoder's attention entries hold a ``cross`` entry of
-    ``cross_len`` rows."""
+    ``cross_len`` rows. Under a split-KV mesh each self-attention leaf is
+    this rank's stripe (:func:`~.attention.striped`)."""
 
     def entry(kind: str) -> dict:
         block_specs(cfg, kind)  # raises for an unknown kind
@@ -469,19 +476,16 @@ def cache_init(cfg: ModelConfig, batch: int, capacity: int, dtype,
 
 def pad_cache_to(cache: Cache, cfg: ModelConfig, capacity: int) -> Cache:
     """Grow prefill K/V entries (length S) to ``capacity`` rows; cross
-    entries and state entries, of a constant size, pass through."""
+    entries and state entries, of a constant size, pass through. Under a
+    split-KV mesh each self-attention leaf keeps only this rank's stripe
+    of the grown rows (:func:`~.attention.striped`)."""
 
     def fix(entry: dict) -> dict:
         if "self" not in entry:
             return entry
-        kv = entry["self"]
-        pad_n = capacity - kv["k"].shape[1]
-        if pad_n <= 0:
-            return entry
         return {**entry, "self": {
-            name: torch.cat([arr, arr.new_zeros(
-                (arr.shape[0], pad_n, *arr.shape[2:]))], dim=1)
-            for name, arr in kv.items()
+            name: attn.striped(arr, capacity)
+            for name, arr in entry["self"].items()
         }}
 
     return {

@@ -29,8 +29,19 @@ its device; a dtype or shape that differs from the checkpoint's raises) and
 returns ``like``. Leaves of the checkpoint that ``like`` lacks are not read,
 so ``{"params": model}`` restores a model from a training checkpoint.
 
-The elastic reshard (``shardings=``) waits for the mesh (``ROADMAP.md``
-queue 1 item 3).
+The elastic reshard is ``load_checkpoint(..., shardings=)``: ``like`` is
+then a tree of nested mappings in the reference's layout (stacked leaves,
+e.g. ``{"params": bundle.abstract()}``, whose meta tensors give each leaf's
+shape and dtype) and ``shardings`` the matching tree of
+:class:`~repro_torch.launch.partitioning.Sharding` (``Partitioner(mesh).
+tree_shardings(bundle.abstract(), bundle.axes)``). Each leaf comes back as
+a new DTensor on its sharding's mesh and placements, this rank reading
+only its own shard of the memory-mapped ``.npy``; ``like`` is not
+written. A DTensor leaf does not go into an ``nn.Module`` by itself: the
+port's modules hold a plain tensor a layer on every rank, so a model
+takes layer ``g`` of a stacked leaf with
+``param.copy_(leaf.full_tensor()[g])`` (``leaf.to_local()[g]`` on a
+one-rank mesh, where the shard is the whole leaf).
 """
 
 from __future__ import annotations
@@ -83,6 +94,15 @@ def _layer_at(parts: tuple) -> int:
         if stacked(list(parts[j:j + 2])) and parts[j + 2].isdigit():
             return j + 2
     return -1
+
+
+def reference_key(name: str) -> str:
+    """The reference's leaf path of a parameter name: the layer number of
+    a per-layer parameter dropped (``groups.0.3.attn.wq`` ->
+    ``groups/0/attn/wq``)."""
+    parts = tuple(name.split("."))
+    g = _layer_at(parts)
+    return _SEP.join(parts[:g] + parts[g + 1:] if g >= 0 else parts)
 
 
 def reference_layout(tree: Tree) -> dict[str, tuple[list[torch.Tensor], bool]]:
@@ -192,32 +212,70 @@ def load_manifest(directory: str | Path, step: int) -> dict:
     return json.loads(path.read_text())
 
 
+def _checked_leaf(base: Path, manifest: dict, key: str, shape: tuple,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """A leaf of the checkpoint, memory-mapped, after checking its shape
+    and dtype against the model's."""
+    entry = manifest["leaves"][key]
+    arr = _load_npy(base / entry["file"], entry["dtype"])
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
+                         f"!= model {tuple(shape)}")
+    if arr.dtype != dtype:
+        raise ValueError(f"{key}: checkpoint dtype {entry['dtype']} != "
+                         f"model {_dtype_name(dtype)}")
+    return arr
+
+
+def _load_sharded(base: Path, manifest: dict, like: Tree, shardings: Tree,
+                  prefix: tuple = ()) -> Tree:
+    """``like``'s structure with each leaf a DTensor on its sharding, read
+    shard by shard."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.partitioning import shard_slices
+
+    if isinstance(like, Mapping):
+        return {k: _load_sharded(base, manifest, v, shardings[k],
+                                 prefix + tuple(str(k).split(".")))
+                for k, v in like.items()}
+    if not isinstance(like, torch.Tensor):
+        raise TypeError(f"{_SEP.join(prefix)}: a sharded restore takes a "
+                        f"tree of tensors, not {type(like).__name__}")
+    mesh, placements = shardings
+    arr = _checked_leaf(base, manifest, _SEP.join(prefix), like.shape,
+                        like.dtype)
+    mine = arr[shard_slices(arr.shape, shardings, mesh.get_coordinate())]
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    local = mine.to(device, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, list(placements), run_check=False)
+
+
 @torch.no_grad()
 def load_checkpoint(
     directory: str | Path,
     like: Tree,
     step: Optional[int] = None,
+    shardings: Optional[Tree] = None,
 ) -> tuple[Tree, dict]:
     """Restore into the tensors of ``like``, in place; returns (like,
-    extra). Raises where a leaf's shape or dtype differs from the
-    checkpoint's."""
+    extra). With ``shardings`` (the elastic reshard), returns a new tree of
+    DTensors instead (see the module's docstring). Raises where a leaf's
+    shape or dtype differs from the checkpoint's."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     base = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((base / "manifest.json").read_text())
+    if shardings is not None:
+        return (_load_sharded(base, manifest, like, shardings),
+                manifest["extra"])
     for key, (layers, stacked) in reference_layout(like).items():
-        entry = manifest["leaves"][key]
-        arr = _load_npy(base / entry["file"], entry["dtype"])
         expect = ((len(layers), *layers[0].shape) if stacked
                   else tuple(layers[0].shape))
-        if tuple(arr.shape) != expect:
-            raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
-                             f"!= model {expect}")
-        if arr.dtype != layers[0].dtype:
-            raise ValueError(f"{key}: checkpoint dtype {entry['dtype']} != "
-                             f"model {_dtype_name(layers[0].dtype)}")
+        arr = _checked_leaf(base, manifest, key, expect, layers[0].dtype)
         for g, t in enumerate(layers):
             t.copy_(arr[g] if stacked else arr)
     return like, manifest["extra"]

@@ -14,8 +14,8 @@ copy.
 
 The int8 gradient quantizer with error feedback (:func:`quantize_tensor`,
 :func:`quantize_grads_with_feedback`, :func:`dequantize_grads`) is ported
-here; the compressed cross-pod step that uses it waits for the mesh
-(``train_step.make_train_step``).
+here; the compressed cross-pod step of ``train_step.make_train_step``
+uses it on a mesh of more than one pod.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ writes and reads without ``ml_dtypes``. The reduced granite carries the
 round trips; the reduced seamless, whose encoder layers the port keeps one
 module each (``encoder.blocks.<l>``) and the reference stacks
 (``encoder/blocks/...``), is held to the same bytes and to loading in both
-packages.
+packages. The elastic restore (``load_checkpoint(..., shardings=)``, the
+counterpart of ``tests/test_checkpoint.py:60``) brings every leaf back as
+a DTensor on a one-rank gloo mesh with the rules' placements, and on a
+(2, 2) mesh of gloo ranks each rank holds its own shard.
 """
 
 import dataclasses
@@ -23,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro.configs import get_config as jax_config
 from repro.configs.base import TrainConfig as JaxTrainConfig
@@ -32,12 +37,16 @@ from repro.train.optimizer import OptState as JaxOptState
 from repro.train.train_step import init_train_state as jax_init_train_state
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainConfig
+from repro_torch.compat import AbstractMesh
 from repro_torch.core import LocalSwarm
+from repro_torch.launch import make_test_mesh
+from repro_torch.launch.partitioning import Partitioner, shard_slices
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import init_train_state
 from repro_torch.train.optimizer import OptState
 from repro_torch.train.train_step import TrainState
+from torch_ranks import run_ranks
 
 
 def _leaves(tree) -> dict:
@@ -269,3 +278,87 @@ def test_an_encoder_decoder_checkpoint_is_the_reference_bytes(tmp_path):
     like = {"params": jax.tree.map(jnp.zeros_like, jtree["params"])}
     back, _ = jckpt.load_checkpoint(tmp_path / "f32", like)
     _assert_same(_jax_leaves(back), _leaves({"params": tree["params"]}))
+
+
+def test_elastic_reshard_shardings(tmp_path, pair):
+    """``tests/test_checkpoint.py:60``: restore under a mesh; each leaf is
+    a DTensor on it with the rules' placements, equal to the saved one."""
+    _, port_tree, pb, _ = pair
+    tree = port_tree()
+    ckpt.save_checkpoint(tmp_path, 2, {"params": tree["params"]})
+    mesh = make_test_mesh((1, 1), ("data", "model"), device="cpu")
+    try:
+        part = Partitioner(mesh)
+        shardings = {"params": part.tree_shardings(pb.abstract(), pb.axes)}
+        restored, _ = ckpt.load_checkpoint(
+            tmp_path, {"params": pb.abstract()}, shardings=shardings)
+        saved = _leaves({"params": tree["params"]})
+        got = {"params/" + k: v for k, v in _flat(restored["params"]).items()}
+        assert set(got) == set(saved)
+        for k, leaf in got.items():
+            assert isinstance(leaf, DTensor) and leaf.device_mesh is mesh, k
+            sharding = _flat(shardings["params"])[k.removeprefix("params/")]
+            assert tuple(leaf.placements) == sharding.placements, k
+            np.testing.assert_array_equal(
+                leaf.to_local().to(torch.float32).numpy(), saved[k], err_msg=k)
+        first = next(iter(got.values()))
+        assert dict(zip(first.device_mesh.mesh_dim_names,
+                        first.device_mesh.shape)) == {"data": 1, "model": 1}
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+RANK_RESTORE = r"""
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch import make_test_mesh
+from repro_torch.launch.partitioning import Partitioner
+from repro_torch.models import build_model
+from repro_torch.models.layers import tree_leaves
+from repro_torch.train import checkpoint as ckpt
+
+mesh = make_test_mesh((2, 2), ("data", "model"), device="cpu")
+bundle = build_model(get_config(SPEC["arch"]).reduce(), "cpu")
+shardings = Partitioner(mesh).tree_shardings(bundle.abstract(), bundle.axes)
+restored, extra = ckpt.load_checkpoint(SPEC["dir"], {"params": bundle.abstract()},
+                                       shardings={"params": shardings})
+assert extra == {"data": {"epoch": 3}}
+out = {}
+for k, leaf in tree_leaves(restored["params"]):
+    out[k] = leaf.to_local().to(torch.float32).numpy()
+    out["coord"] = np.array(mesh.get_coordinate())
+np.savez(OUT, **out)
+"""
+
+
+def test_each_rank_restores_its_own_shard(tmp_path, pair):
+    """On a (2, 2) ("data", "model") mesh of gloo ranks, each rank's
+    restored leaf is its slice of the saved one, by the rules."""
+    _, port_tree, pb, _ = pair
+    tree = port_tree()
+    ckpt.save_checkpoint(tmp_path / "ckpt", 5, {"params": tree["params"]},
+                         extra={"data": {"epoch": 3}})
+    ranks = run_ranks(tmp_path, 4, RANK_RESTORE, {
+        "arch": "granite_3_2b", "dir": str(tmp_path / "ckpt")})
+    saved = _leaves({"params": tree["params"]})
+    part = Partitioner(AbstractMesh((2, 2), ("data", "model")))
+    axes = _flat(pb.axes)
+    split = 0
+    for got in ranks:
+        coord = tuple(got["coord"])
+        for k, ax in axes.items():
+            want = saved["params/" + k]
+            mine = want[shard_slices(want.shape, part.sharding(want.shape, ax),
+                                     coord)]
+            np.testing.assert_array_equal(got[k], mine, err_msg=k)
+            split += got[k].size < want.size
+    assert split > 0

@@ -1,7 +1,7 @@
 """The port's training launcher and the serving launcher's ``--ckpt-dir``
 on the CPU (the counterparts of the reference's launcher tests,
-``tests/test_launch_*.py`` lines 18 and 34, without the elastic launcher,
-which waits for the mesh).
+``tests/test_launch_*.py`` lines 18 and 34, and the elastic launcher
+after the training launcher, ``tests/test_launch_drivers.py:18-32``).
 
 ``launch.serve --ckpt-dir`` restores a checkpoint that the JAX package
 saved and must serve the reference engine's greedy tokens for the same
@@ -12,12 +12,14 @@ holds the engines' tokens equal on shared weights).
 
 import jax
 import numpy as np
+import torch.distributed as dist
 
 from repro.configs import get_config as jax_config
 from repro.models import build_model as jax_build
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import ServeEngine as JaxServeEngine
 from repro.train import checkpoint as jckpt
+from repro_torch.launch import elastic
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 
@@ -90,3 +92,24 @@ def test_launch_train_moe_arch(tmp_path, capsys):
                        "--prompt-len", "8", "--new-tokens", "3",
                        "--slots", "2"])
     assert f"restored from {ckpt}" in capsys.readouterr().out
+
+
+def test_launch_train_and_elastic(tmp_path, capsys):
+    """``tests/test_launch_drivers.py:18``: the elastic launcher reshards
+    what the training launcher wrote onto a one-rank mesh and prints the
+    data cursor."""
+    ckpt = str(tmp_path / "ckpt")
+    launch_train.main([
+        "--arch", "granite_3_2b", "--steps", "10", "--global-batch", "4",
+        "--seq-len", "32", "--ckpt-dir", ckpt, "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "done step=10" in out
+    try:
+        elastic.main(["--ckpt-dir", ckpt, "--arch", "granite_3_2b",
+                      "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert "resharded" in out and "data cursor" in out
+    assert "{'data': 1, 'model': 1}" in out

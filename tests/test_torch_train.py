@@ -306,9 +306,11 @@ def test_eval_step_and_the_mesh_refusal(tiny):
     loss, _ = pb.loss_fn(state.params, _port_batch(batch))
     assert float(m["loss"]) == float(loss.detach())
     assert not m["loss"].requires_grad
+    # the mesh step is ported; its layout pin for XLA's partitioner
+    # (grad_shardings=) still waits for the dry-run slice
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         make_train_step(pb, TrainConfig(grad_compression="int8"), mesh=object(),
-                        pod_axis="pod")
+                        pod_axis="pod", grad_shardings={})
 
 
 # --------------------------------------------------------------------------- trainer
