@@ -118,3 +118,35 @@ def set_mesh(mesh):
 def current_mesh():
     """The innermost mesh installed by :func:`set_mesh`, or None."""
     return _MESHES[-1] if _MESHES else None
+
+
+# --------------------------------------------------------------------------- collectives
+
+
+def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``x`` reduced (``"sum"`` or ``"max"``) over ``group``, out of place,
+    through the functional collective (``_c10d_functional.all_reduce``)
+    that DTensor's own redistributions use, so that one counter sees
+    both."""
+    out = torch.ops._c10d_functional.all_reduce(x.contiguous(), op,
+                                                group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+class SumOver(torch.autograd.Function):
+    """The sum over ``groups`` (in turn) divided by ``n`` forward; the
+    backward hands each rank its cotangent divided by ``n``. The sum is
+    replicated, so each rank holds the whole cotangent of its own addend;
+    a caller that counts each addend on several ranks (equal values on a
+    split axis) divides by their number through ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, groups, n):
+        ctx.n = n
+        for group in groups:
+            x = all_reduce(x, "sum", group)
+        return x / n if n != 1 else x
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.n if ctx.n != 1 else g), None, None

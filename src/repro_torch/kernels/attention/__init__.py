@@ -1,6 +1,5 @@
 from .kernel import (
-    flash_attention_bwd_cuda, flash_attention_bwd_replaced_cuda,
-    flash_attention_cuda,
+    flash_attention_bwd_cuda, flash_attention_cuda,
 )
 from .ops import FlashAttention, flash_attention
 from .ref import (
@@ -16,6 +15,5 @@ __all__ = [
     "attention_ref",
     "flash_attention",
     "flash_attention_bwd_cuda",
-    "flash_attention_bwd_replaced_cuda",
     "flash_attention_cuda",
 ]

@@ -787,10 +787,7 @@ int launch_d(int d, int dtype, const void* q, const void* k, const void* v,
 // TF32 would break: tiles in shared memory as float32, products with fmaf.
 // Tiles are square, kT rows (64, or 32 at d 256 to keep the accumulators
 // in registers); 256 threads a CTA; one CTA an SM (up to 169 KB of shared
-// memory). The same kernels in bfloat16 (operands widened to float32) are
-// the design the tensor-core route replaced, kept callable through
-// attn_bwd_replaced_launch as a control that chip_smoke.py times beside
-// it; no path reaches them.
+// memory).
 
 namespace bwd {
 
@@ -1893,22 +1890,6 @@ int attn_bwd_launch(const void* q, const void* k, const void* v,
                     const long long* strides, int causal, int window,
                     float softcap, float scale, void* stream, int* route) {
   return bwd::entry(false, q, k, v, o, dout, lse, delta, dq, dk, dv, dtype,
-                    b, hq, hkv, sq, skv, d, strides, causal, window, softcap,
-                    scale, static_cast<cudaStream_t>(stream), route);
-}
-
-// attn_bwd_launch's contract in bfloat16 alone, through the SIMT kernels
-// that the tensor-core route replaced (operands widened to float32): a
-// control to time beside it, which no path of the package calls.
-int attn_bwd_replaced_launch(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout,
-                             const float* lse, float* delta, void* dq,
-                             void* dk, void* dv, int dtype, int b, int hq,
-                             int hkv, int sq, int skv, int d,
-                             const long long* strides, int causal,
-                             int window, float softcap, float scale,
-                             void* stream, int* route) {
-  return bwd::entry(true, q, k, v, o, dout, lse, delta, dq, dk, dv, dtype,
                     b, hq, hkv, sq, skv, d, strides, causal, window, softcap,
                     scale, static_cast<cudaStream_t>(stream), route);
 }

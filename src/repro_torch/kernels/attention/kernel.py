@@ -41,13 +41,6 @@ and dS split into two bf16 terms for the three gradient products, as
 every operand through its strides, as the forward does; its ``launches``
 counts calls, one a call, and ``route_launches`` counts them by ``(dtype,
 route)`` as the C entry reports the route it launched.
-
-:func:`flash_attention_bwd_replaced_cuda` takes the same arguments in
-bfloat16 alone and runs the SIMT kernels on them (operands widened to
-float32 in shared memory): the design that the tensor-core route replaced,
-kept as a control for ``chip_smoke.py`` to time beside it, with a
-``launches`` counter of its own. No path of the package calls it, and
-nothing falls back to it.
 """
 
 from __future__ import annotations
@@ -88,12 +81,11 @@ def _lib() -> ctypes.CDLL:
         _I, _F, _F, _P, ctypes.POINTER(_I),
     ]
     lib.attn_fwd_launch.restype = _I
-    for entry in (lib.attn_bwd_launch, lib.attn_bwd_replaced_launch):
-        entry.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _I, _BWD_STRIDES, _I, _I, _F, _F, _P, ctypes.POINTER(_I),
-        ]
-        entry.restype = _I
+    lib.attn_bwd_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I, _BWD_STRIDES, _I, _I, _F, _F, _P, ctypes.POINTER(_I),
+    ]
+    lib.attn_bwd_launch.restype = _I
     lib.attn_bwd_shared_memory.argtypes = [_I, ctypes.POINTER(_I),
                                            ctypes.POINTER(_I)]
     lib.attn_bwd_shared_memory.restype = _I
@@ -284,22 +276,7 @@ def flash_attention_bwd_cuda(
     return grads
 
 
-def flash_attention_bwd_replaced_cuda(q, k, v, out, dout, lse, *,
-                                      causal=True, window=0, softcap=0.0):
-    """:func:`flash_attention_bwd_cuda`'s contract in bfloat16 through the
-    SIMT kernels that its tensor-core route replaced: a control to time,
-    never called by the package."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the replaced bf16 backward takes bfloat16 (got "
-                        f"{q.dtype})")
-    grads, _ = _backward("attn_bwd_replaced_launch", q, k, v, out, dout,
-                         lse, causal, window, softcap)
-    flash_attention_bwd_replaced_cuda.launches += 1
-    return grads
-
-
 flash_attention_cuda.launches = 0
 flash_attention_cuda.route_launches = collections.Counter()
 flash_attention_bwd_cuda.launches = 0
 flash_attention_bwd_cuda.route_launches = collections.Counter()
-flash_attention_bwd_replaced_cuda.launches = 0

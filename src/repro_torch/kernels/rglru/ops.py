@@ -18,19 +18,30 @@ both reversed with ``torch.flip``, the result reversed back. Then ``db_t
 = dh_t``, ``da_t = dh_t h_{t-1}`` (``h_{-1} = h0``) and ``dh0 = a_0 dh_0``.
 The reference differentiates an associative scan instead, which rounds in
 another order.
+
+K6 is the ``torch.library`` op ``repro_torch::rglru_scan`` (forward and
+reversed alike): dispatch by device as above, a fake implementation, a
+FLOP formula (one multiply-add a step and channel), a byte count and a
+DTensor sharding rule (batch or channels shard;
+:mod:`repro_torch.kernels.costs`).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .. import costs
 from .kernel import rglru_scan_cuda
 from .ref import rglru_scan_ref
 
+Tensor = torch.Tensor
 
-def _scan(a: torch.Tensor, b: torch.Tensor,
-          h0: torch.Tensor | None) -> torch.Tensor:
-    """The float32 trajectory, by device."""
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def rglru_scan_op(a: Tensor, b: Tensor, h0: Optional[Tensor]) -> Tensor:
+    """K6: the float32 trajectory of ``h_t = a_t h_{t-1} + b_t``."""
     if a.device.type == "cuda":
         f32 = [t.to(torch.float32).contiguous() for t in (a, b)]
         h = None if h0 is None else h0.to(torch.float32).contiguous()
@@ -38,6 +49,39 @@ def _scan(a: torch.Tensor, b: torch.Tensor,
     if a.device.type == "cpu":
         return rglru_scan_ref(a.to(torch.float32), b.to(torch.float32), h0)
     raise ValueError(f"rglru_scan: unsupported device {a.device}")
+
+
+@rglru_scan_op.register_fake
+def _(a, b, h0):
+    return torch.empty(a.shape, dtype=torch.float32, device=a.device)
+
+
+def rglru_flops(a_shape, b_shape, h0_shape, *args, **kwargs) -> int:
+    """One multiply-add a (batch, step, channel): ``2 B S W``."""
+    bsz, s, w = a_shape
+    return 2 * bsz * s * w
+
+
+def _rglru_rule(a, b, h0):
+    """Replicated, or sharded on batch (dim 0) or channels (dim 2, the
+    state's dim 1); the time axis stays whole."""
+    none = h0 is None
+    return [
+        (costs.placements("R"),
+         costs.placements("R", "R", None if none else "R")),
+        (costs.placements(0), costs.placements(0, 0, None if none else 0)),
+        (costs.placements(2), costs.placements(2, 2, None if none else 1)),
+    ]
+
+
+costs.register(torch.ops.repro_torch.rglru_scan, flops=rglru_flops,
+               rule=_rglru_rule)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor,
+          h0: torch.Tensor | None) -> torch.Tensor:
+    """The float32 trajectory through K6's op."""
+    return torch.ops.repro_torch.rglru_scan(a, b, h0)
 
 
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,

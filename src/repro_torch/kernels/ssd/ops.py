@@ -19,28 +19,96 @@ CPU), and its backward recomputes the chunked form through the plain
 version under ``torch.enable_grad()`` and differentiates it with
 ``torch.autograd.grad``, as the reference differentiates its jnp
 ``ssd_chunked``. A backward kernel for K5 is later work.
+
+K5 is the ``torch.library`` op ``repro_torch::ssd_chunked``: dispatch by
+device as above, a fake implementation, a FLOP formula
+(:func:`ssd_flops`), a byte count and a DTensor sharding rule (batch or
+heads shard; :mod:`repro_torch.kernels.costs`).
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from .. import costs
 from .kernel import ssd_chunked_cuda
 from .ref import ssd_chunked_ref
 
+Tensor = torch.Tensor
 
-def _ssd_chunked(x, dt, a_neg, bmat, cmat, chunk, h0):
-    """The forward, by device."""
+
+@torch.library.custom_op("repro_torch::ssd_chunked", mutates_args=())
+def ssd_chunked_op(x: Tensor, dt: Tensor, a_neg: Tensor, bmat: Tensor,
+                   cmat: Tensor, chunk: int, h0: Optional[Tensor]
+                   ) -> tuple[Tensor, Tensor]:
+    """K5 in the model's layout: ``(y (B, S, H, P), h_last (B, H, P,
+    N))``, float32."""
     if x.device.type == "cuda":
         f32 = torch.float32
         y, h_last = ssd_chunked_cuda(
             x.transpose(1, 2), dt.to(f32).transpose(1, 2),
             a_neg.to(f32).contiguous(), bmat, cmat, chunk=chunk,
             h0=None if h0 is None else h0.to(f32).contiguous())
-        return y.transpose(1, 2), h_last
-    if x.device.type == "cpu":
-        return ssd_chunked_ref(x, dt, a_neg, bmat, cmat, chunk, h0)
-    raise ValueError(f"ssd_chunked: unsupported device {x.device}")
+        y = y.transpose(1, 2)
+    elif x.device.type == "cpu":
+        y, h_last = ssd_chunked_ref(x, dt, a_neg, bmat, cmat, chunk, h0)
+    else:
+        raise ValueError(f"ssd_chunked: unsupported device {x.device}")
+    # contiguous, as the kernel writes them (and the fake says)
+    return y.contiguous(), h_last.contiguous()
+
+
+@ssd_chunked_op.register_fake
+def _(x, dt, a_neg, bmat, cmat, chunk, h0):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p), dtype=torch.float32),
+            x.new_empty((b, h, p, bmat.shape[-1]), dtype=torch.float32))
+
+
+def ssd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, h0_shape,
+              *args, **kwargs) -> int:
+    """K5's products on the live rows of each chunk of ``q`` rows, for
+    each (batch, head): ``C Bᵀ`` on the causal triangle, ``q (q + 1) N``
+    (``q (q + 1) / 2`` pairs, 2 operations a multiply-add); the masked
+    scores times ``x dt``, ``q (q + 1) P``; ``C h_prevᵀ`` and the state
+    update ``(x dt w)ᵀ B``, ``2 q P N`` each. The elementwise decays are
+    not counted (as ``chip_smoke.py`` bounds the kernel)."""
+    b, s, h, p = x_shape
+    n = b_shape[-1]
+    total = 0
+    for t in range(0, s, chunk):
+        q = min(chunk, s - t)
+        total += q * (q + 1) * (n + p) + 4 * q * p * n
+    return b * h * total
+
+
+def _ssd_rule(x, dt, a_neg, bmat, cmat, chunk, h0):
+    """Replicated, or sharded on batch, or on heads (x and dt dim 2, the
+    decay rates dim 0, the state dim 1; B and C, shared by the heads,
+    replicate); the sequence, head dim and state stay whole."""
+    none = h0 is None
+    return [
+        (costs.placements("R", "R"),
+         costs.placements("R", "R", "R", "R", "R", None,
+                          None if none else "R")),
+        (costs.placements(0, 0),
+         costs.placements(0, 0, "R", 0, 0, None, None if none else 0)),
+        (costs.placements(2, 1),
+         costs.placements(2, 2, 0, "R", "R", None, None if none else 1)),
+    ]
+
+
+costs.register(torch.ops.repro_torch.ssd_chunked, flops=ssd_flops,
+               rule=_ssd_rule)
+
+
+def _ssd_chunked(x, dt, a_neg, bmat, cmat, chunk, h0):
+    """The forward through K5's op."""
+    return torch.ops.repro_torch.ssd_chunked(x, dt, a_neg, bmat, cmat,
+                                             chunk, h0)
 
 
 def ssd_chunked_bwd(inputs, chunk, dy, dh_last):
@@ -67,8 +135,54 @@ class SSDChunked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        grads = ssd_chunked_bwd(ctx.saved_tensors, ctx.chunk, dy, dh_last)
+        inputs = ctx.saved_tensors
+        if isinstance(inputs[0], DTensor):
+            return (*_sharded_bwd(inputs, ctx.chunk, dy, dh_last), None)
+        grads = ssd_chunked_bwd(inputs, ctx.chunk, dy, dh_last)
         return (*grads, None)
+
+
+def _sharded_bwd(inputs, chunk, dy, dh_last):
+    """:func:`ssd_chunked_bwd` on each rank's shard of DTensor inputs,
+    laid out by K5's sharding rule as x decides it (each mesh dim that
+    splits x's batch or heads splits the others alike; any other split
+    of x is gathered): the recomputation is local, a split input's
+    gradient is its shard's, and an input that is whole where the op is
+    split (the decay rates under a batch split, B and C under a heads
+    split) gets a ``Partial`` gradient, each rank's share."""
+    x = inputs[0]
+    mesh = x.device_mesh
+    # per input (x, dt, a_neg, bmat, cmat, h0) and the outputs (y,
+    # h_last): the dim each splits on, by the split of x
+    by_split = {0: (0, 0, None, 0, 0, 0, 0, 0),
+                2: (2, 2, 0, None, None, 1, 2, 1)}
+    layouts = [by_split.get(p.dim) if isinstance(p, Shard) else None
+               for p in x.placements]
+
+    def placements(i):
+        return [Replicate() if dims is None or dims[i] is None
+                else Shard(dims[i]) for dims in layouts]
+
+    def local(t, i):
+        if not isinstance(t, DTensor):      # a plain (replicated) cotangent
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements(i)).to_local()
+
+    grads = ssd_chunked_bwd(
+        [None if t is None else local(t, i) for i, t in enumerate(inputs)],
+        chunk, local(dy, 6), local(dh_last, 7))
+    out = []
+    for i, (t, g) in enumerate(zip(inputs, grads)):
+        if t is None:
+            out.append(None)
+            continue
+        pl = [Partial() if dims is not None and dims[i] is None else p
+              for p, dims in zip(placements(i), layouts)]
+        out.append(DTensor.from_local(g, mesh, pl, run_check=False,
+                                      shape=t.shape, stride=t.stride())
+                   .redistribute(mesh, t.placements))
+    return out
 
 
 def ssd_chunked(

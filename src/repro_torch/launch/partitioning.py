@@ -216,3 +216,104 @@ def device_put_tree(tree: Any, shardings: Any) -> Any:
     shard)."""
     return _map2(lambda leaf, sh: distribute_tensor(
         leaf, sh.mesh, list(sh.placements)), tree, shardings)
+
+
+# --------------------------------------------------------------------------- the port's per-layer leaves
+
+
+def layer_sharding(sharding: Sharding, stacked: bool) -> Sharding:
+    """The sharding of one layer of a stacked reference leaf: the leading
+    ``layers`` dim (which the rules never shard) dropped, every ``Shard(d)``
+    moved to ``Shard(d - 1)``; a plain leaf's as it is."""
+    if not stacked:
+        return sharding
+    out = []
+    for p in sharding.placements:
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise ValueError(f"{sharding}: a stacked leaf sharded on "
+                                 "its layers dim")
+            p = Shard(p.dim - 1)
+        out.append(p)
+    return Sharding(sharding.mesh, tuple(out))
+
+
+def _at(tree, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def parameter_names(cfg) -> list[str]:
+    """The port's parameter names for ``cfg`` (a ``ParamTree``'s, dotted,
+    a list item by its index), in the module's order."""
+    from ..models.layers import ParamSpec
+    from ..models.transformer import layer_specs
+
+    def walk(tree, prefix):
+        if isinstance(tree, ParamSpec):
+            yield prefix[:-1]
+        elif isinstance(tree, list):
+            for i, t in enumerate(tree):
+                yield from walk(t, f"{prefix}{i}.")
+        else:
+            for k, v in tree.items():
+                yield from walk(v, f"{prefix}{k}.")
+
+    return list(walk(layer_specs(cfg), ""))
+
+
+def param_shardings(bundle, mesh, tree=None) -> dict:
+    """``{parameter name: Sharding}`` for the port's parameter names
+    (``groups.0.3.attn.wq``): each reference leaf's sharding by the rules
+    (or by ``tree``, a tree of :class:`Sharding` in the reference's layout,
+    such as ``grad_shardings=``), one layer of it for a stacked leaf."""
+    from ..train.checkpoint import reference_key
+
+    if tree is None:
+        tree = Partitioner(mesh).tree_shardings(bundle.abstract(),
+                                                bundle.axes)
+    out = {}
+    for name in parameter_names(bundle.cfg):
+        key = reference_key(name)
+        stacked = key != name.replace(".", "/")   # a layer number dropped
+        out[name] = layer_sharding(_at(tree, key), stacked)
+    return out
+
+
+def shard_tensor(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """``t`` (the same full tensor on every rank) as a DTensor holding this
+    rank's shard, with no collective (``DTensor.from_local`` of its slice);
+    a DTensor passes through."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        return t
+    mesh = sharding.mesh
+    local = t[shard_slices(t.shape, sharding, mesh.get_coordinate())]
+    stride = torch.empty(t.shape, device="meta").stride()
+    return DTensor.from_local(local.contiguous(), mesh,
+                              list(sharding.placements), run_check=False,
+                              shape=t.shape, stride=stride)
+
+
+def shard_module(module, bundle, mesh, shardings: Optional[dict] = None):
+    """A new parameter module (a ``ParamTree`` of the bundle's names) whose
+    parameters are DTensors in the rules' layout on ``mesh`` (or
+    ``shardings``, name -> :class:`Sharding`) over this rank's slices of
+    ``module``'s (:func:`shard_tensor`: no collective, and no copy where a
+    slice is contiguous, as every leaf is on a one-rank mesh); each
+    requires a gradient as its source does. ``module`` is left as it
+    is."""
+    from ..models.layers import ParamTree
+    from ..models.transformer import layer_specs
+
+    shardings = shardings or param_shardings(bundle, mesh)
+    out = ParamTree(layer_specs(bundle.cfg),
+                    getattr(torch, bundle.cfg.param_dtype), "meta")
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        out.get_submodule(".".join(path))._parameters[leaf] = \
+            torch.nn.Parameter(shard_tensor(p.detach(), shardings[name]),
+                               requires_grad=p.requires_grad)
+    return out

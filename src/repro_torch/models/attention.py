@@ -35,14 +35,16 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from ..compat import current_mesh, mesh_axes
+from ..compat import all_reduce, current_mesh, mesh_axes
 from ..configs.base import ModelConfig
 from ..kernels.attention import ops as attn_ops
 from .layers import (
-    EMBED, HEADDIM, KVHEADS, QHEADS, ParamSpec, apply_rope, qk_norm, softcap,
+    BATCH_AXES, EMBED, HEADDIM, KVHEADS, MODEL_AXIS, QHEADS, ParamSpec,
+    apply_rope, constrain, constrain_bshd, keep_grad_layout, qk_norm,
+    softcap,
 )
 
 NEG_INF = -2.0e38
@@ -67,13 +69,30 @@ def attn_specs(cfg: ModelConfig, cross: bool = False
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
+    """einsum("bsd,dhk->bshk") as one matrix product. On DTensors the
+    product is pinned before its last dim splits into heads: over 'model'
+    where the heads divide it, else whole (a shard must hold whole
+    heads)."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    if isinstance(w, DTensor) and any(
+            isinstance(p, Shard) and w.shape[p.dim] == 1
+            for p in w.placements):
+        # a dim of one head "split" over a mesh dim of one rank: whole
+        # (the same bytes), so that the reshape may merge it
+        w = w.redistribute(w.device_mesh, [
+            Replicate() if isinstance(p, Shard) and w.shape[p.dim] == 1
+            else p for p in w.placements])
+    y = x @ keep_grad_layout(w.reshape(d, h * k))
+    if isinstance(y, DTensor):
+        n = dict(zip(y.device_mesh.mesh_dim_names or (),
+                     y.device_mesh.shape)).get(MODEL_AXIS, 1)
+        y = constrain(y, (BATCH_AXES, None,
+                          MODEL_AXIS if h % n == 0 else None))
+    return y.unflatten(-1, (h, k))
 
 
 def project_q(params, x, cfg: ModelConfig, positions, *, rope: bool = True):
-    q = _heads(x, params["wq"])
+    q = constrain_bshd(_heads(x, params["wq"]))
     if cfg.qk_norm and "q_gamma" in params:
         q = qk_norm(q, params["q_gamma"], cfg.norm_eps)
     if rope:
@@ -83,8 +102,8 @@ def project_q(params, x, cfg: ModelConfig, positions, *, rope: bool = True):
 
 
 def project_kv(params, x, cfg: ModelConfig, positions, *, rope: bool = True):
-    k = _heads(x, params["wk"])
-    v = _heads(x, params["wv"])
+    k = constrain_bshd(_heads(x, params["wk"]))
+    v = constrain_bshd(_heads(x, params["wv"]))
     if cfg.qk_norm and "k_gamma" in params:
         k = qk_norm(k, params["k_gamma"], cfg.norm_eps)
     if rope:
@@ -96,10 +115,36 @@ def project_kv(params, x, cfg: ModelConfig, positions, *, rope: bool = True):
 def o_proj(params, ctx: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     h, k, d = params["wo"].shape
-    return ctx.flatten(-2) @ params["wo"].reshape(h * k, d)
+    return (keep_grad_layout(ctx.flatten(-2))
+            @ keep_grad_layout(params["wo"].reshape(h * k, d)))
 
 
 # --------------------------------------------------------------------------- sequence paths (K4)
+
+
+def _model_split(t: torch.Tensor) -> int:
+    """How many ways ``t`` (a DTensor, heads at dim 2) is split over its
+    mesh's model axis, or 1."""
+    if not isinstance(t, DTensor) or MODEL_AXIS not in (
+            t.device_mesh.mesh_dim_names or ()):
+        return 1
+    m = t.device_mesh.mesh_dim_names.index(MODEL_AXIS)
+    return t.device_mesh.shape[m] if t.placements[m] == Shard(2) else 1
+
+
+def _expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K and V as the kernel can take them beside q's shard: where q's
+    heads are split over 'model' and the KV heads are not, each KV head
+    repeated ``Hq / Hkv`` times and pinned like q (the reference's
+    ``_expand_kv``, ``repro/models/attention.py:80-91``), so that every
+    rank holds the KV heads of its own query heads. Elsewhere (no mesh,
+    or the KV heads split alike) K and V as they are: the kernel maps
+    each query head to its KV head itself."""
+    if _model_split(q) == _model_split(k):
+        return k, v
+    g = q.shape[2] // k.shape[2]
+    return tuple(constrain_bshd(t.repeat_interleave(g, dim=2))
+                 for t in (k, v))
 
 
 def _no_offset(q_offset: int) -> None:
@@ -224,6 +269,8 @@ def striped(rows: torch.Tensor, capacity: int) -> torch.Tensor:
     on, as a DTensor of the global shape (``Shard(1)`` on ``model``,
     ``Replicate()`` on the other mesh dims); otherwise the whole leaf
     (``rows`` itself when it has ``capacity`` rows)."""
+    if isinstance(rows, DTensor):          # a prefill's K/V on a mesh
+        rows = rows.full_tensor()
     layout = split_kv_layout(capacity)
     if layout is None:
         pad_n = capacity - rows.shape[1]
@@ -250,64 +297,90 @@ def decode_step_split_kv(
     *,
     window: int = 0,
     attn_softcap: float = 0.0,
+    write: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step with the KV ring sharded over 'model' by sequence
     (``repro/models/attention.py`` ``decode_step_split_kv``).
 
-    The rank whose stripe holds row ``cache_len - 1`` writes the new
-    token there (quantized for an int8 cache); the others write nothing.
-    Every rank computes float32 scores over its stripe (the softcap, then
-    the length and window masks by global row), its partial max, and
-    after an all-reduce MAX over ``model``, ``exp(s - m)``, whose sum and
-    product with V two all-reduce SUMs add up; the output is ``o /
+    A ``local_map`` over the cache's mesh (the reference's ``shard_map``,
+    manual over 'model'): the cache enters in its own placements, q and
+    the new row replicated over 'model' and laid out like the cache's
+    batch elsewhere. The rank whose stripe holds row ``cache_len - 1``
+    writes the new token there (quantized for an int8 cache); the others
+    write nothing. Every rank computes float32 scores over its stripe (the
+    softcap, then the length and window masks by global row), its partial
+    max, and after an all-reduce MAX over ``model``, ``exp(s - m)``, whose
+    sum and product with V two all-reduce SUMs add up; the output is ``o /
     max(l, 1e-37)``. An int8 cache is dequantized straight to float32.
-    Returns (out, cache), the cache written in place."""
-    mesh = current_mesh()
+    A plain q (and new row) is taken as replicated, and the output comes
+    back plain. With ``write=False`` (a cross cache, the encoder's K/V)
+    nothing is written and ``k_new``/``v_new`` are None. Returns (out,
+    cache), the cache written in place."""
+    mesh = cache["k"].device_mesh
     n = mesh_axes(mesh)["model"]
     group = mesh.get_group("model")
     rank = mesh.get_local_rank("model")
     smax = cache["k"].shape[1]
     s_loc = smax // n
     start = rank * s_loc
-    local = {name: x.to_local() for name, x in cache.items()}  # views
     tgt = (cache_len - 1) - start
     int8 = _cache_is_int8(cache)
-    if 0 <= tgt < s_loc:
-        if int8:
-            (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
-            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-        else:
-            new = {"k": k_new, "v": v_new}
-        for name, x in new.items():
-            local[name][:, tgt:tgt + 1] = x
-    if int8:
-        kf = dequantize_kv(local["k"], local["k_scale"])
-        vf = dequantize_kv(local["v"], local["v_scale"])
-    else:
-        kf = local["k"].to(torch.float32)
-        vf = local["v"].to(torch.float32)
+    names = list(cache)
+    cache_pl = tuple(cache["k"].placements)
+    row_pl = tuple(Replicate() if p == Shard(1) else p for p in cache_pl)
 
-    b, _, hq, d = q.shape
-    hkv = kf.shape[2]
-    g = hq // hkv
-    qg = q.to(torch.float32).reshape(b, 1, hkv, g, d) * (1.0 / math.sqrt(d))
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
-    if attn_softcap > 0:
-        s = softcap(s, attn_softcap)
-    k_idx = start + torch.arange(s_loc, device=q.device)
-    mask = k_idx < cache_len
-    if window > 0:
-        mask &= k_idx >= cache_len - window
-    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
-    m = s.amax(dim=-1)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    dist.all_reduce(l, group=group)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
-    dist.all_reduce(o, group=group)
-    out = o / torch.clamp(l, min=1e-37).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, 1, hq, d).to(q.dtype), cache
+    def stripe(q, k_new, v_new, *leaves):
+        local = dict(zip(names, leaves))          # views of the stripes
+        if write and 0 <= tgt < s_loc:
+            if int8:
+                (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
+                new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            else:
+                new = {"k": k_new, "v": v_new}
+            for name, x in new.items():
+                local[name][:, tgt:tgt + 1] = x
+        if int8:
+            kf = dequantize_kv(local["k"], local["k_scale"])
+            vf = dequantize_kv(local["v"], local["v_scale"])
+        else:
+            kf = local["k"].to(torch.float32)
+            vf = local["v"].to(torch.float32)
+        b, _, hq, d = q.shape
+        hkv = kf.shape[2]
+        g = hq // hkv
+        qg = (q.to(torch.float32).reshape(b, 1, hkv, g, d)
+              * (1.0 / math.sqrt(d)))
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+        if attn_softcap > 0:
+            s = softcap(s, attn_softcap)
+        k_idx = start + torch.arange(s_loc, device=q.device)
+        mask = k_idx < cache_len
+        if window > 0:
+            mask &= k_idx >= cache_len - window
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+        m = all_reduce(s.amax(dim=-1), "max", group)
+        p = torch.exp(s - m[..., None])
+        l = all_reduce(p.sum(dim=-1), "sum", group)
+        o = all_reduce(torch.einsum("bhgqk,bkhd->bqhgd", p, vf),
+                              "sum", group)
+        out = o / torch.clamp(l, min=1e-37).permute(0, 3, 1, 2)[..., None]
+        return out.reshape(b, 1, hq, d).to(q.dtype)
+
+    plain = not isinstance(q, DTensor)
+    rows = [DTensor.from_local(t, mesh, row_pl, run_check=False) if plain
+            else t for t in ((q, k_new, v_new) if write else (q,))]
+    n_rows = len(rows)
+
+    def body(*args):
+        new = args[1:n_rows] if write else (None, None)
+        return stripe(args[0], *new, *args[n_rows:])
+
+    out = local_map(body, out_placements=list(row_pl),
+                    in_placements=(row_pl,) * n_rows
+                    + (cache_pl,) * len(names),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        *rows, *(cache[name] for name in names))
+    return (out.to_local() if plain else out), cache
 
 
 # --------------------------------------------------------------------------- block-level API
@@ -325,11 +398,12 @@ def attention_sequence(
     """Full-sequence attention (train / prefill). Returns (out, (k, v))."""
     q = project_q(params, x, cfg, positions)
     k, v = project_kv(params, x, cfg, positions)
+    ke, ve = _expand_kv(q, k, v)
     if local:
-        ctx = local_attention(q, k, v, window=cfg.window,
+        ctx = local_attention(q, ke, ve, window=cfg.window,
                               attn_softcap=cfg.attn_logit_softcap)
     else:
-        ctx = flash_attention(q, k, v, causal=causal,
+        ctx = flash_attention(q, ke, ve, causal=causal,
                               attn_softcap=cfg.attn_logit_softcap)
     return o_proj(params, ctx), (k, v)
 
@@ -353,8 +427,15 @@ def attention_step(
     cross cache (the encoder's K/V), writing nothing."""
     q = project_q(params, x, cfg, position, rope=not cross)
     if cross:
-        ctx = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1],
-                               attn_softcap=cfg.attn_logit_softcap)
+        if isinstance(cache["k"], DTensor) and _split_kv_available(
+                cache["k"]):
+            ctx, _ = decode_step_split_kv(
+                q, None, None, cache, cache["k"].shape[1],
+                attn_softcap=cfg.attn_logit_softcap, write=False)
+        else:
+            ctx = decode_attention(q, cache["k"], cache["v"],
+                                   cache["k"].shape[1],
+                                   attn_softcap=cfg.attn_logit_softcap)
         return o_proj(params, ctx), cache
     k, v = project_kv(params, x, cfg, position)
     window = cfg.window if local else 0

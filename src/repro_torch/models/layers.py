@@ -7,10 +7,18 @@ parameter trees have the same paths, shapes and init rule. The logical
 axes name how a leaf is sharded on a mesh: :func:`param_axes` reads them
 and :mod:`repro_torch.launch.partitioning` turns them into placements;
 :func:`abstract_params` gives the tree as meta tensors, with no
-allocation. The JAX package's layout hints to XLA's partitioner
-(``constrain``, ``constrain_bsd``, ``constrain_bshd``, ``gather_sp``)
-have no counterpart yet: the dry-run is their one caller that depends on
-layout, and it waits for its own slice (``ROADMAP.md`` queue 1 item 3).
+allocation.
+
+The layout pins (``constrain``, ``constrain_bsd``, ``constrain_bshd``,
+``gather_sp``), the reference's hints to XLA's partitioner, are explicit
+``redistribute`` s here: on a DTensor under an ambient mesh
+(:func:`repro_torch.compat.set_mesh`) each moves the tensor to the named
+layout, with the placements :func:`repro_torch.launch.partitioning.
+placements_of` makes of the spec; DTensor's op-by-op sharding
+propagation does the rest, as GSPMD does around the reference's pins. A
+mesh axis that does not divide its dim is dropped (replication, as the
+rules do), since a kernel needs whole heads. On a plain tensor, or
+outside a mesh, they do nothing.
 
 The functions take and return tensors of the caller's dtype and compute
 where the reference computes (norms, RoPE and softcaps in float32).
@@ -25,6 +33,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from ..compat import current_mesh
 
 # logical axis vocabulary (the JAX package's launch/partitioning.py rules)
 LAYERS, EMBED, MLP, VOCAB = "layers", "embed", "mlp", "vocab"
@@ -193,6 +205,93 @@ class ParamTree(torch.nn.Module):
         return key in self._parameters or key in self._modules
 
 
+# --------------------------------------------------------------------------- layout pins
+
+BATCH_AXES = ("pod", "data")
+MODEL_AXIS = "model"
+
+
+def constrain(x: torch.Tensor, names: tuple) -> torch.Tensor:
+    """``x`` redistributed to the layout ``names`` (one entry a dim: None,
+    a mesh-axis name, or a tuple of them, major first) on its mesh, when
+    ``x`` is a DTensor and a mesh is installed; otherwise ``x``. Axes
+    absent from the mesh, already used, or not dividing the dim are
+    dropped."""
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    from ..launch.partitioning import placements_of
+
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    used: set = set()
+    spec = []
+    for dim, entry in zip(x.shape, names):
+        group = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        picked, size = [], 1
+        for a in group:
+            if a in sizes and a not in used and dim % (size * sizes[a]) == 0:
+                picked.append(a)
+                size *= sizes[a]
+        used.update(picked)
+        spec.append(tuple(picked) if picked else None)
+    placements = placements_of(mesh, tuple(spec)).placements
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+class _GradLayout(torch.autograd.Function):
+    """Identity forward; the backward redistributes the gradient to the
+    forward's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+                ctx.placements):
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def keep_grad_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient is brought back to ``x``'s own layout before
+    it reaches ``x``'s producer (a DTensor view that splits a dim needs
+    the gradient sharded as its output was); a plain tensor as it is."""
+    if not isinstance(x, DTensor) or not torch.is_grad_enabled():
+        return x
+    return _GradLayout.apply(x)
+
+
+def constrain_bsd(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) residual-stream layout: batch over ('pod', 'data') and,
+    when ``S > 1`` and the sequence divides the model axis, the sequence
+    over 'model' (sequence parallelism, as the reference's)."""
+    mesh = current_mesh()
+    seq = None
+    if isinstance(x, DTensor) and mesh is not None:
+        n = dict(zip(x.device_mesh.mesh_dim_names,
+                     x.device_mesh.shape)).get(MODEL_AXIS)
+        if n is not None and x.shape[1] > 1 and x.shape[1] % n == 0:
+            seq = MODEL_AXIS
+    return constrain(x, (BATCH_AXES, seq, None))
+
+
+def constrain_bshd(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Dh) attention layout: batch and heads sharded."""
+    return constrain(x, (BATCH_AXES, None, MODEL_AXIS, None))
+
+
+def gather_sp(x: torch.Tensor) -> torch.Tensor:
+    """Leave the SP layout: the sequence whole, batch-only sharding."""
+    return constrain(x, (BATCH_AXES, None, None))
+
+
 # --------------------------------------------------------------------------- norms
 
 
@@ -318,8 +417,49 @@ def embed_specs(vocab: int, d_model: int, tie: bool) -> dict[str, ParamSpec]:
     return specs
 
 
+def _sharded_embedding(tokens: torch.Tensor, table: DTensor) -> DTensor:
+    """The lookup of a DTensor table, vocab split over at most one
+    mesh dim, through ``local_map``: each rank looks up the tokens its
+    vocab shard holds and writes zeros elsewhere, a ``Partial`` sum over
+    the vocab's mesh dim (Megatron's vocab-parallel embedding); the table
+    is gathered on every other dim (FSDP). On one rank it is
+    the plain lookup bit for bit."""
+    mesh = table.device_mesh
+    vocab = [m for m, p in enumerate(table.placements) if p == Shard(0)]
+    if len(vocab) > 1:
+        raise ValueError(f"embedding: the vocab split over {len(vocab)} "
+                         "mesh dims")
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_pl = [Replicate() if m in vocab else p
+              for m, p in enumerate(tokens.placements)]
+    table_pl = [Shard(0) if m in vocab else Replicate()
+                for m in range(mesh.ndim)]
+    grad_pl = [Shard(0) if m in vocab else
+               Partial() if isinstance(p, Shard) else Replicate()
+               for m, p in enumerate(tok_pl)]
+    out_pl = [Partial() if m in vocab else p for m, p in enumerate(tok_pl)]
+    rows = table.shape[0] // (mesh.shape[vocab[0]] if vocab else 1)
+    offset = mesh.get_local_rank(vocab[0]) * rows if vocab else 0
+
+    def lookup(t, w):
+        idx = t - offset
+        inside = (idx >= 0) & (idx < w.shape[0])
+        x = w[idx.clamp(0, w.shape[0] - 1)]      # as the plain path indexes
+        return torch.where(inside[..., None], x, torch.zeros_like(x))
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(tok_pl, table_pl),
+                     in_grad_placements=(tok_pl, grad_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        tokens, table)
+
+
 def embed_lookup(params, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
-    x = params["table"][tokens]
+    table = params["table"]
+    x = (_sharded_embedding(tokens, table) if isinstance(table, DTensor)
+         else table[tokens])
     # gemma-style sqrt(d) scaling keeps tied-embedding logits sane
     return x * torch.tensor(math.sqrt(d_model), dtype=x.dtype, device=x.device)
 

@@ -44,8 +44,12 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import (
+    implicit_replication, local_map,
+)
 
-from ..compat import resolve_device, set_mesh
+from ..compat import SumOver, all_reduce, resolve_device, set_mesh
 from ..configs.base import ModelConfig
 from . import transformer as tf
 from .convert import draw_into
@@ -71,23 +75,103 @@ def default_positions(cfg: ModelConfig, batch: int, seq: int,
     return pos
 
 
+def _lse_gold(logits: torch.Tensor, targets: torch.Tensor, group=None,
+              offset: int = 0):
+    """``(logz, gold, top)`` a token in float32 from (a vocab shard of) the
+    logits: the log-sum-exp, the target's logit and the largest logit.
+    With ``group`` (the ranks that split the vocab, this shard starting at
+    ``offset``) the shards' log-sum-exps combine as ``M + log(sum exp(lse
+    - M))`` (``M`` their all-reduced max, exactly the shard's own on one
+    rank), the target's logit is summed from the shard that holds it and
+    the maximum all-reduced: no rank ever holds the whole vocab."""
+    x = logits.to(torch.float32)
+    lse = torch.logsumexp(x, dim=-1)
+    top = x.amax(dim=-1)
+    idx = targets.long() - offset
+    inside = (idx >= 0) & (idx < x.shape[-1])
+    gold = x.gather(-1, idx.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+    if group is None:
+        return lse, gold, top
+    gold = SumOver.apply(torch.where(inside, gold, torch.zeros_like(gold)),
+                         [group], 1)
+    top = all_reduce(top.detach(), "max", group)
+    m = all_reduce(lse.detach(), "max", group)
+    lse = m + torch.log(SumOver.apply(torch.exp(lse - m), [group], 1))
+    return lse, gold, top
+
+
+def _sharded_lse_gold(logits: DTensor, targets: torch.Tensor):
+    """:func:`_lse_gold` on each rank's shard of DTensor logits (batch
+    over the batch axes, the vocab over at most one mesh dim), through
+    ``local_map``; the three results are DTensors laid out as the
+    logits' batch."""
+    mesh = logits.device_mesh
+    vocab = [m for m, p in enumerate(logits.placements) if p == Shard(2)]
+    if len(vocab) > 1 or any(p == Shard(1) for p in logits.placements):
+        raise ValueError(f"cross_entropy: logits placements "
+                         f"{logits.placements}; the vocab may split over "
+                         "one mesh dim and the sequence over none")
+    row = tuple(Replicate() if p == Shard(2) else p
+                for p in logits.placements)
+    group = offset = None
+    if vocab:
+        group = mesh.get_group(vocab[0])
+        offset = mesh.get_local_rank(vocab[0]) * logits.to_local().shape[-1]
+    if not isinstance(targets, DTensor):
+        targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+    return local_map(
+        lambda x, t: _lse_gold(x, t, group, offset or 0),
+        out_placements=(row, row, row), in_placements=(logits.placements, row),
+        device_mesh=mesh, redistribute_inputs=True)(logits, targets)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   z_weight: float = 0.0) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL in float32, with the reference's metrics (ties
-    count as correct) and optional z-loss."""
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    count as correct) and optional z-loss. DTensor logits are reduced
+    shard by shard (:func:`_sharded_lse_gold`)."""
+    if isinstance(logits, DTensor):
+        logz, gold, top = _sharded_lse_gold(logits, targets)
+    else:
+        logz, gold, top = _lse_gold(logits, targets)
     loss = (logz - gold).mean()
     metrics = {
         "nll": loss,
-        "accuracy": (gold >= logits.amax(dim=-1)).to(torch.float32).mean(),
+        "accuracy": (gold >= top).to(torch.float32).mean(),
     }
     if z_weight > 0:
         zl = z_weight * logz.square().mean()
         metrics["z_loss"] = zl
         loss = loss + zl
     return loss, metrics
+
+
+def batch_positions(cfg: ModelConfig, tokens: torch.Tensor, device=None
+                    ) -> torch.Tensor:
+    """:func:`default_positions` for a batch of ``tokens``; for DTensor
+    tokens, a DTensor laid out as the tokens (batch dim 1 of mrope's
+    ``(3, B, S)``) whose every rank makes its own rows."""
+    if not isinstance(tokens, DTensor):
+        b, s = tokens.shape
+        return default_positions(cfg, b, s, device=device)
+    local = tokens.to_local()
+    pos = default_positions(cfg, local.shape[0], local.shape[1],
+                            device=local.device)
+    placements = tokens.placements
+    if cfg.rope_mode == "mrope":
+        placements = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                      for p in placements]
+    return DTensor.from_local(pos, tokens.device_mesh, placements,
+                              run_check=False)
+
+
+def _plain(logits: torch.Tensor, tokens) -> torch.Tensor:
+    """Serving's logits as the caller's tokens are: whole when DTensor
+    parameters met plain tokens (a serving engine samples from them)."""
+    if isinstance(logits, DTensor) and not isinstance(tokens, DTensor):
+        return logits.full_tensor()
+    return logits
 
 
 @dataclasses.dataclass
@@ -105,6 +189,7 @@ class ModelBundle:
     axes: Any = None
     cache_axes: Optional[Callable[..., Any]] = None
     abstract: Optional[Callable[[], Any]] = None
+    cache_abstract: Optional[Callable[..., Any]] = None
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -137,13 +222,14 @@ def build_model(cfg: ModelConfig, device=None,
     def decode_batch(params: Params, batch: dict, *, want_cache: bool = False,
                      last_only: bool = False):
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
-        b, s = tokens.shape
         positions = batch.get("positions")
-        positions = (default_positions(cfg, b, s, device=dev)
+        positions = (batch_positions(cfg, tokens, dev)
                      if positions is None else positions.to(dev))
-        return tf.decoder_apply(params, tokens, positions, cfg, ep,
-                                memory=memory(params, batch),
-                                want_cache=want_cache, last_only=last_only)
+        with implicit_replication():
+            return tf.decoder_apply(params, tokens, positions, cfg, ep,
+                                    memory=memory(params, batch),
+                                    want_cache=want_cache,
+                                    last_only=last_only)
 
     forward = torch.no_grad()(decode_batch)
 
@@ -156,7 +242,8 @@ def build_model(cfg: ModelConfig, device=None,
         here (``z_weight=0.0``, whatever ``TrainConfig.z_loss`` says)."""
         logits, aux, _ = decode_batch(params, batch)
         targets = torch.as_tensor(batch["targets"]).to(dev)
-        loss, metrics = cross_entropy(logits, targets, z_weight=0.0)
+        with implicit_replication():
+            loss, metrics = cross_entropy(logits, targets, z_weight=0.0)
         if cfg.is_moe:
             lb = aux["lb"] / max(cfg.num_layers, 1)
             z = aux["z"] / max(cfg.num_layers, 1)
@@ -167,30 +254,37 @@ def build_model(cfg: ModelConfig, device=None,
         return loss, metrics
 
     def forward_fn(params: Params, batch: dict) -> torch.Tensor:
-        return forward(params, batch)[0]
+        return _plain(forward(params, batch)[0], batch["tokens"])
 
     def prefill_fn(params: Params, batch: dict):
         """Process the prompt; returns (last-position logits, cache)."""
         logits, _, cache = forward(params, batch, want_cache=True,
                                    last_only=True)
-        return logits, cache
+        return _plain(logits, batch["tokens"]), cache
 
     @torch.no_grad()
     def decode_fn(params: Params, token: torch.Tensor, position: torch.Tensor,
                   cache: Cache, cache_len: int):
-        return tf.decode_step(params, token.to(dev), position.to(dev), cache,
-                              int(cache_len), cfg, ep)
+        with implicit_replication():
+            logits, cache = tf.decode_step(params, token.to(dev),
+                                           position.to(dev), cache,
+                                           int(cache_len), cfg, ep)
+        return _plain(logits, token), cache
 
     def cache_init(batch: int, capacity: int, cross_len: int = 0) -> Cache:
         return tf.cache_init(cfg, batch, capacity, cdtype, dev, cross_len)
+
+    def cache_abstract(batch: int, capacity: int, cross_len: int = 0) -> Any:
+        """The cache tree of the global shapes as meta tensors."""
+        with set_mesh(None):
+            return tf.cache_init(cfg, batch, capacity, cdtype, "meta",
+                                 cross_len)
 
     def cache_axes_fn(batch: int, capacity: int, cross_len: int = 0) -> Any:
         """Logical axes of the cache's leaves, by the reference's leaf rules
         (``repro/models/model.py:137-163``) on the port's cache tree (one
         entry a layer, so no ``layers`` axis), for the global shapes."""
-        with set_mesh(None):
-            cache = tf.cache_init(cfg, batch, capacity, cdtype, "meta",
-                                  cross_len)
+        cache = cache_abstract(batch, capacity, cross_len)
 
         def entry_axes(entry: dict) -> dict:
             out = {}
@@ -217,4 +311,5 @@ def build_model(cfg: ModelConfig, device=None,
         loss_fn=loss_fn, forward_fn=forward_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
         cache_init=cache_init, axes=param_axes(specs), cache_axes=cache_axes_fn,
         abstract=lambda: abstract_params(specs, pdtype),
+        cache_abstract=cache_abstract,
     )

@@ -25,22 +25,22 @@ Three execution paths with the reference's arithmetic:
   with another, and a sum over ``model`` adds the F-partials.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
-``mesh_dim_names`` are taken from ``("pod", "data", "model")``; the JAX
-package's ``shard_map`` becomes each rank slicing the full tensors it is
-handed (experts by its rank on the expert axis, F by its rank on
-``model``, the batch by its rank on the batch axes) and collectives on
-``mesh.get_group(axis)``. The caller hands every rank the same full
-``x`` and parameters, and every rank returns the full output and aux
-losses, as the reference's global arrays are. Gradients follow the same
-rule: the region's inputs pass through :class:`_Enter`, whose backward
-sums the ranks' partial gradients over the axes that split the work, so
-that every rank ends with the gradient the local path gives (the aux
-losses, equal on the ranks of the expert or model axis, enter that sum
-once through :class:`_Sum`'s divisor). Sharded parameters, where each rank
-keeps only its own experts, wait for the dry-run slice (``ROADMAP.md``
-queue 1 item 3): the mesh (:mod:`repro_torch.launch.mesh`) is ported, and
-its rules say which experts a rank would keep, but every rank is handed
-them all.
+``mesh_dim_names`` are taken from ``("pod", "data", "model")``. The
+parameters are DTensors placed by the rules (``launch/partitioning.py``;
+a plain leaf raises), and the JAX package's ``shard_map`` becomes
+``local_map``: each rank gets its batch block over the batch axes and
+reads its own experts from the rules' shards (the gather layout gathers
+the FSDP dim over ``data`` and keeps ``experts`` over ``model``; the a2a
+layout takes ``experts_dp`` over ``data`` and the FFN width over
+``model`` as they lie), with collectives on ``mesh.get_group(axis)``.
+The output is a DTensor laid out as its batch block (a plain ``x``, the
+same on every rank, enters replicated and comes back whole). Gradients
+come back through the ``local_map``'s gradient placements: ``Partial``
+over the axes whose ranks each hold a share of an input's gradient (the
+expert axis for ``x``, the batch axes for the experts, every split axis
+for the router), which DTensor adds up; the aux losses, equal on the
+ranks of the expert or model axis, enter that sum once through
+:class:`~repro_torch.compat.SumOver`'s divisor.
 
 Aux losses (load balance and router z) are computed from the full router
 distribution and averaged over the batch axes.
@@ -54,10 +54,11 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from ..compat import mesh_axes
+from ..compat import SumOver, mesh_axes
 from ..configs.base import ModelConfig
 from .layers import EMBED, EXPERTS, EXPERTS_DP, MLP, ParamSpec, mlp_apply, mlp_specs
 
@@ -142,8 +143,10 @@ def _aux_losses(r: Routing, cfg: ModelConfig):
     """Switch load balance, E · sum_e f_e · p_e over the global expert set,
     and the router z loss."""
     e, k = cfg.num_experts, cfg.top_k
-    frac = torch.bincount(r.ids, minlength=e).to(torch.float32) \
-        / r.ids.numel() * k
+    # the per-expert counts (bincount's), with a shape fixed ahead of the data
+    counts = torch.zeros(e, dtype=torch.int64, device=r.ids.device) \
+        .scatter_add_(0, r.ids, torch.ones_like(r.ids))
+    frac = counts.to(torch.float32) / r.ids.numel() * k
     lb = e * torch.sum(frac / k * r.probs.mean(dim=0))
     z = torch.logsumexp(r.logits, dim=-1).square().mean()
     return lb, z
@@ -219,92 +222,15 @@ def _groups(mesh, axes) -> list:
     return [mesh.get_group(a) for a in axes]
 
 
-class _Enter(torch.autograd.Function):
-    """Identity forward; the backward sums the ranks' partial gradients
-    over ``groups`` (the axes that split the work), so that each rank holds
-    the whole gradient of the replicated input."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        for group in ctx.groups:
-            dist.all_reduce(g, group=group)
-        return g, None
-
-
-class _Sum(torch.autograd.Function):
-    """The sum over ``groups`` divided by ``n`` forward; the backward hands
-    each rank its (replicated) cotangent divided by ``n``, which
-    :class:`_Enter` sums."""
-
-    @staticmethod
-    def forward(ctx, x, groups, n):
-        ctx.n = n
-        y = x.contiguous().clone()
-        for group in groups:
-            dist.all_reduce(y, group=group)
-        return y / n if n != 1 else y
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g / ctx.n if ctx.n != 1 else g), None, None
-
-
-def _batch_axes(mesh, names) -> list:
-    """``[(group, size, rank)]`` of this rank on the mesh axes ``names``."""
-    sizes = mesh_axes(mesh)
-    return [(mesh.get_group(a), sizes[a], mesh.get_local_rank(a))
-            for a in names]
-
-
-def _block_index(axes) -> tuple[int, int]:
-    """(this rank's block, blocks) along dim 0 over ``axes`` =
-    :func:`_batch_axes`, outer axis first (row-major, as a
-    ``PartitionSpec`` over several axes)."""
-    index, blocks = 0, 1
-    for _, size, rank in axes:
-        index, blocks = index * size + rank, blocks * size
-    return index, blocks
-
-
-def _block(x: torch.Tensor, axes) -> torch.Tensor:
-    """This rank's block of ``x`` along dim 0 over ``axes``."""
-    index, blocks = _block_index(axes)
-    n = x.shape[0] // blocks
-    return x[index * n:(index + 1) * n]
-
-
-class _Gather(torch.autograd.Function):
-    """Concatenate the ranks' blocks along dim 0 over ``axes`` (as
-    :func:`_block` cuts them); the backward takes this rank's block."""
-
-    @staticmethod
-    def forward(ctx, x, axes):
-        ctx.index, ctx.blocks = _block_index(axes)
-        y = x.contiguous()
-        for group, size, _ in reversed(axes):
-            parts = [torch.empty_like(y) for _ in range(size)]
-            dist.all_gather(parts, y, group=group)
-            y = torch.cat(parts, dim=0)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        n = g.shape[0] // ctx.blocks
-        return g[ctx.index * n:(ctx.index + 1) * n], None
-
-
 def _a2a_bf16(x: torch.Tensor, group) -> torch.Tensor:
-    """Tiled all-to-all along dim 0 in bfloat16."""
+    """Tiled all-to-all along dim 0 in bfloat16, through the functional
+    collective."""
     send = x.to(torch.bfloat16).contiguous()
-    out = torch.empty_like(send)
-    dist.all_to_all_single(out, send, group=group)
-    return out
+    n = group.size()
+    out = torch.ops._c10d_functional.all_to_all_single(
+        send, [send.shape[0] // n] * n, [send.shape[0] // n] * n,
+        group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
 
 
 class _A2AWire(torch.autograd.Function):
@@ -325,6 +251,30 @@ class _A2AWire(torch.autograd.Function):
 _a2a_wire = _A2AWire.apply
 
 
+def _placements(mesh, **by_axis) -> tuple:
+    """One placement a mesh dim: ``by_axis[name]`` for the named axes,
+    ``Replicate()`` elsewhere."""
+    return tuple(by_axis.get(name, Replicate())
+                 for name in mesh.mesh_dim_names)
+
+
+def _sharded(params, names) -> None:
+    for n in names:
+        if n in params and not isinstance(params[n], DTensor):
+            raise TypeError(
+                f"moe: the expert-parallel paths take the parameters as "
+                f"DTensors placed by the rules; {n!r} is a plain tensor")
+
+
+def _as_dtensor(x: torch.Tensor, mesh):
+    """``(DTensor, plain)``: ``x`` as it is, or a plain ``x`` (the same on
+    every rank) as a replicated DTensor."""
+    if isinstance(x, DTensor):
+        return x, False
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False), True
+
+
 # --------------------------------------------------------------------------- paths
 
 
@@ -337,7 +287,10 @@ def moe_apply_a2a(
     """a2a expert parallelism: experts split over ``data`` on the expert
     dim, each expert's FFN width over ``model``. Weights never move;
     tokens are routed to their experts' owners with one all-to-all and
-    back with another, so there is no weight gather in the forward."""
+    back with another, so there is no weight gather in the forward. A
+    ``local_map`` (the reference's ``shard_map``) hands each rank its
+    batch block over ``("pod", "data")`` and the expert weights in the
+    rules' own placements."""
     mesh = ep.mesh
     axes = mesh_axes(mesh)
     b, s, d = x.shape
@@ -347,53 +300,64 @@ def moe_apply_a2a(
     batch_axes = tuple(a for a in ("pod", "data") if a in axes)
     dp_size = int(np.prod([axes[a] for a in batch_axes])) if batch_axes else 1
     e_local = e // n_data
-    f_local = cfg.d_ff // axes.get("model", 1)
     cap = _capacity((b // dp_size) * s, cfg)
     world = math.prod(axes.values())
     groups = _groups(mesh, split)
-    batch = _batch_axes(mesh, batch_axes)
-
-    def enter(t):
-        return _Enter.apply(t, groups)
-
-    e0 = mesh.get_local_rank("data") * e_local if "data" in axes else 0
-    f0 = mesh.get_local_rank("model") * f_local if "model" in axes else 0
-    router = enter(params["router"])
-    wg = enter(params["w_gate"])[e0:e0 + e_local, :, f0:f0 + f_local] \
-        if "w_gate" in params else None
-    wu = enter(params["w_up"])[e0:e0 + e_local, :, f0:f0 + f_local]
-    wd = enter(params["w_down"])[e0:e0 + e_local, f0:f0 + f_local]
-    x_loc = _block(enter(x), batch)
-
-    bl, sl, _ = x_loc.shape
-    t = bl * sl
-    x2d = x_loc.reshape(t, d).to(getattr(torch, cfg.compute_dtype))
-    r = _route(x2d, router, cfg, cap)
-    dest = torch.where(r.keep, r.ids * cap + r.pos, e * cap)
-    send = _dispatch(x2d, dest, k, e * cap).reshape(e, cap, d)
-
     data_group = mesh.get_group("data") if n_data > 1 else None
-    recv = _a2a_wire(send, data_group) if n_data > 1 else send
-    # recv[i*e_local + le] = sender i's capacity slots for my expert le
-    h = recv.reshape(n_data, e_local, cap, d).transpose(0, 1) \
-        .reshape(e_local, n_data * cap, d)
-    y = _experts(h, wg, wu, wd, cfg.act).to(x2d.dtype)   # partial over 'model'
+    model_group = mesh.get_group("model") if "model" in axes else None
+    cdtype = getattr(torch, cfg.compute_dtype)
 
-    back = y.reshape(e_local, n_data, cap, d).transpose(0, 1) \
-        .reshape(e, cap, d)
-    if n_data > 1:
-        back = _a2a_wire(back, data_group)
-    weight = (r.gates.reshape(-1) * r.keep).to(x2d.dtype)
-    y2d = _combine(back.reshape(e * cap, d), dest, weight, t, k)
-    if "model" in axes:
-        y2d = _Sum.apply(y2d, [mesh.get_group("model")], 1)
+    def local_fn(x_loc, router, wg, wu, wd):
+        bl, sl, _ = x_loc.shape
+        t = bl * sl
+        x2d = x_loc.reshape(t, d).to(cdtype)
+        r = _route(x2d, router, cfg, cap)
+        dest = torch.where(r.keep, r.ids * cap + r.pos, e * cap)
+        send = _dispatch(x2d, dest, k, e * cap).reshape(e, cap, d)
+        recv = _a2a_wire(send, data_group) if n_data > 1 else send
+        # recv[i*e_local + le] = sender i's capacity slots for my expert le
+        h = recv.reshape(n_data, e_local, cap, d).transpose(0, 1) \
+            .reshape(e_local, n_data * cap, d)
+        # partial over 'model'
+        y = _experts(h, wg, wu, wd, cfg.act).to(x2d.dtype)
+        back = y.reshape(e_local, n_data, cap, d).transpose(0, 1) \
+            .reshape(e, cap, d)
+        if n_data > 1:
+            back = _a2a_wire(back, data_group)
+        weight = (r.gates.reshape(-1) * r.keep).to(x2d.dtype)
+        y2d = _combine(back.reshape(e * cap, d), dest, weight, t, k)
+        if model_group is not None:
+            y2d = SumOver.apply(y2d, [model_group], 1)
+        lb, z = _aux_losses(r, cfg)
+        # the mean over the batch axes: the ranks of 'model' hold equal values
+        lb = SumOver.apply(lb, groups, world)
+        z = SumOver.apply(z, groups, world)
+        return y2d.reshape(bl, sl, d), lb, z
 
-    lb, z = _aux_losses(r, cfg)
-    # the mean over the batch axes: the ranks of 'model' hold equal values
-    lb = _Sum.apply(lb, groups, world)
-    z = _Sum.apply(z, groups, world)
-    y_loc = y2d.reshape(bl, sl, d)
-    y = _Gather.apply(y_loc, batch) if batch_axes else y_loc
+    names = ("w_gate", "w_up", "w_down")
+    _sharded(params, ("router", *names))
+    x, plain = _as_dtensor(x, mesh)
+    batch = {a: Shard(0) for a in batch_axes}
+    rep = _placements(mesh)
+    part = {a: Partial() for a in split}
+    w_in = {n: tuple(params[n].placements) for n in names if n in params}
+    w_grad = {n: tuple(Partial() if name == "pod" else p for name, p in
+                       zip(mesh.mesh_dim_names, pl))
+              for n, pl in w_in.items()}
+    ws = [params[n] if n in params else None for n in names]
+    y, lb, z = local_map(
+        local_fn,
+        out_placements=(_placements(mesh, **batch), rep, rep),
+        in_placements=(_placements(mesh, **batch), rep,
+                       *(w_in.get(n) for n in names)),
+        in_grad_placements=(
+            _placements(mesh, **batch, **({"model": Partial()}
+                                          if "model" in axes else {})),
+            _placements(mesh, **part), *(w_grad.get(n) for n in names)),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(x, params["router"], *ws)
+    if plain:
+        y, lb, z = (t.full_tensor() for t in (y, lb, z))
     return y, {"lb": lb, "z": z}
 
 
@@ -419,11 +383,24 @@ def moe_apply(
         return y, aux
 
     if ep.mesh is None or ep.ep_axis not in axes:
-        x2d = x.reshape(b * s, d)
         cap = _capacity(b * s, cfg)
-        y2d, lb, z = _route_and_compute(x2d, params, cfg, 0,
-                                        cfg.num_experts, cap)
-        y = y2d.reshape(b, s, d)
+        names = tuple(n for n in ("router", "w_gate", "w_up", "w_down")
+                      if n in params)
+
+        def local_fn(x, *ws):
+            y2d, lb, z = _route_and_compute(
+                x.reshape(b * s, d), dict(zip(names, ws)), cfg, 0,
+                cfg.num_experts, cap)
+            return y2d.reshape(b, s, d), lb, z
+
+        if isinstance(x, DTensor):
+            # the whole expert set on every rank, over the whole batch
+            rep = _placements(x.device_mesh)
+            local_fn = local_map(
+                local_fn, out_placements=(rep, rep, rep),
+                in_placements=(rep,) * (1 + len(names)),
+                device_mesh=x.device_mesh, redistribute_inputs=True)
+        y, lb, z = local_fn(x, *(params[n] for n in names))
     else:
         mesh = ep.mesh
         ep_size = axes[ep.ep_axis]
@@ -435,27 +412,41 @@ def moe_apply(
         cap = _capacity((b // dp_size) * s, cfg)
         split = tuple(dict.fromkeys((*dp, ep.ep_axis)))
         groups = _groups(mesh, split)
-
-        def enter(t):
-            return _Enter.apply(t, groups)
-
+        n = math.prod(axes[a] for a in split)
+        ep_group = mesh.get_group(ep.ep_axis)
         e0 = mesh.get_local_rank(ep.ep_axis) * e_local
-        local = {n: enter(params[n])[e0:e0 + e_local]
-                 for n in ("w_gate", "w_up", "w_down") if n in params}
-        batch = _batch_axes(mesh, dp)
-        x_loc = _block(enter(x), batch)
-        bl, sl, _ = x_loc.shape
-        y2d, lb, z = _route_and_compute(
-            x_loc.reshape(bl * sl, d),
-            {"router": enter(params["router"]), **local}, cfg, e0, e_local,
-            cap)
-        y_loc = _Sum.apply(y2d.reshape(bl, sl, d),
-                           [mesh.get_group(ep.ep_axis)], 1)
-        # the mean over dp: the ranks of the expert axis hold equal values
-        n = math.prod(mesh_axes(mesh)[a] for a in split)
-        lb = _Sum.apply(lb, groups, n)
-        z = _Sum.apply(z, groups, n)
-        y = _Gather.apply(y_loc, batch) if dp else y_loc
+        names = tuple(w for w in ("w_gate", "w_up", "w_down") if w in params)
+
+        def local_fn(x_loc, router, *ws):
+            bl, sl, _ = x_loc.shape
+            y2d, lb, z = _route_and_compute(
+                x_loc.reshape(bl * sl, d),
+                {"router": router, **dict(zip(names, ws))}, cfg, e0,
+                e_local, cap)
+            y_loc = SumOver.apply(y2d.reshape(bl, sl, d), [ep_group], 1)
+            # the mean over dp: the ranks of the expert axis hold equal values
+            return (y_loc, SumOver.apply(lb, groups, n),
+                    SumOver.apply(z, groups, n))
+
+        _sharded(params, ("router", *names))
+        x_in, plain = _as_dtensor(x, mesh)
+        batch = {a: Shard(0) for a in dp}
+        rep = _placements(mesh)
+        experts = _placements(mesh, **{ep.ep_axis: Shard(0)})
+        y, lb, z = local_map(
+            local_fn,
+            out_placements=(_placements(mesh, **batch), rep, rep),
+            in_placements=(_placements(mesh, **batch), rep,
+                           *(experts for _ in names)),
+            in_grad_placements=(
+                _placements(mesh, **batch, **{ep.ep_axis: Partial()}),
+                _placements(mesh, **{a: Partial() for a in split}),
+                *(_placements(mesh, **{a: Partial() for a in dp},
+                              **{ep.ep_axis: Shard(0)}) for _ in names)),
+            device_mesh=mesh, redistribute_inputs=True,
+        )(x_in, params["router"], *(params[w] for w in names))
+        if plain:
+            y, lb, z = (t.full_tensor() for t in (y, lb, z))
 
     if cfg.moe_dense_residual and "dense" in params:
         y = y + mlp_apply(params["dense"], x, cfg.act)

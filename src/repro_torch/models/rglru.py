@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from ..configs.base import ModelConfig
 from ..kernels.rglru.ops import rglru_scan
@@ -61,6 +63,22 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     y = sum(xp[:, i:i + s] * w[i][None, None, :] for i in range(width))
     new_tail = xp[:, -(width - 1):].clone() if width > 1 else tail
     return y, new_tail
+
+
+def _pointwise(n_in: int, n_out: int):
+    """A DTensor sharding rule for an elementwise op of ``n_in`` tensor
+    operands and ``n_out`` outputs, all of one shape: replicated, or all
+    sharded alike on any dim."""
+    def rule(x, *args):
+        return [([p] * n_out, [p] * n_in)
+                for p in [Replicate()] + [Shard(d) for d in range(x.ndim)]]
+    return rule
+
+
+# DTensor has no strategy for log-sigmoid (F.logsigmoid): elementwise
+register_sharding(torch.ops.aten.log_sigmoid_forward.default)(_pointwise(1, 2))
+register_sharding(torch.ops.aten.log_sigmoid_backward.default)(
+    _pointwise(3, 1))
 
 
 def _gates(params, u: torch.Tensor):

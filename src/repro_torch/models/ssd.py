@@ -21,7 +21,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd.ops import ssd_chunked
-from .layers import EMBED, ParamSpec, SSM_HEADS, SSM_INNER, rms_norm
+from .layers import (
+    EMBED, ParamSpec, SSM_HEADS, SSM_INNER, keep_grad_layout, rms_norm,
+)
 from .rglru import causal_conv1d
 
 __all__ = ["ssd_cache_init", "ssd_chunked", "ssd_sequence", "ssd_specs",
@@ -45,8 +47,11 @@ def ssd_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
 
 def _split_proj(params, x: torch.Tensor, cfg: ModelConfig):
     di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    # on DTensors the projection's gradient comes back in its own layout
+    # (the split's consumers may hand it back sequence-sharded, which the
+    # weight gradient's flattened (B, S) cannot take)
     z, xin, bmat, cmat, dt = torch.split(
-        x @ params["in_proj"], [di, di, n, n, h], dim=-1)
+        keep_grad_layout(x @ params["in_proj"]), [di, di, n, n, h], dim=-1)
     return z, torch.cat([xin, bmat, cmat], dim=-1), dt
 
 

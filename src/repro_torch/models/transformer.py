@@ -53,8 +53,9 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import attention as attn
 from .layers import (
-    embed_logits, embed_lookup, embed_specs, mlp_apply, mlp_specs, rms_norm,
-    rms_norm_spec, softcap, stack_specs,
+    BATCH_AXES, MODEL_AXIS, constrain, constrain_bsd, embed_logits, gather_sp,
+    embed_lookup, embed_specs, mlp_apply, mlp_specs, rms_norm, rms_norm_spec,
+    softcap, stack_specs,
 )
 from .moe import EPContext, moe_apply, moe_specs
 from .rglru import rglru_cache_init, rglru_sequence, rglru_specs, rglru_step
@@ -165,6 +166,22 @@ def _entry(cache: Cache, where) -> dict:
 # --------------------------------------------------------------------------- blocks
 
 
+def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h`` in the residual stream's layout (``constrain_bsd``), ``h``
+    moved there by an explicit redistribute: DTensor's own operand
+    redistribution inside the add is invisible to autograd, and would hand
+    ``h``'s producer its gradient in the sequence-parallel layout."""
+    return constrain_bsd(x + constrain_bsd(h))
+
+
+def _norm(x: torch.Tensor, gamma: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    """A block's pre-norm, its output out of the sequence-parallel layout
+    (``gather_sp``): the mixers' and FFNs' products flatten (B, S) into
+    one dim, which DTensor cannot shard on both."""
+    return gather_sp(rms_norm(x, gamma, cfg.norm_eps))
+
+
 def _ffn_apply(params, x: torch.Tensor, cfg: ModelConfig, ep: EPContext
                ) -> tuple[torch.Tensor, dict]:
     if cfg.is_moe:
@@ -183,20 +200,20 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
     its self attention."""
     if kind == "ssd":
         h, state = ssd_sequence(
-            params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
-        return x + h, state, {}
+            params["ssd"], _norm(x, params["ln1"], cfg), cfg)
+        return _residual(x, h), state, {}
     if kind == "rec":
         h, (hl, tail) = rglru_sequence(
-            params["rec"], rms_norm(x, params["ln1"], cfg.norm_eps), cfg)
-        x = x + h
-        x = x + mlp_apply(params["ffn"],
-                          rms_norm(x, params["ln2"], cfg.norm_eps), cfg.act)
+            params["rec"], _norm(x, params["ln1"], cfg), cfg)
+        x = _residual(x, h)
+        x = _residual(x, mlp_apply(params["ffn"],
+                                   _norm(x, params["ln2"], cfg), cfg.act))
         return x, {"h": hl, "conv": tail}, {}
     h, (k, v) = attn.attention_sequence(
-        params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), positions,
+        params["attn"], _norm(x, params["ln1"], cfg), positions,
         cfg, local=kind == "local_attn", causal=causal,
     )
-    x = x + h
+    x = _residual(x, h)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = attn.quantize_kv(k)
         vq, vs = attn.quantize_kv(v)
@@ -207,15 +224,16 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
         mem_k, mem_v = attn.project_kv(params["cross"], memory, cfg, None,
                                        rope=False)
         q = attn.project_q(params["cross"],
-                           rms_norm(x, params["ln_cross"], cfg.norm_eps),
+                           _norm(x, params["ln_cross"], cfg),
                            cfg, None, rope=False)
-        ctx = attn.flash_attention(q, mem_k, mem_v, causal=False,
+        ctx = attn.flash_attention(q, *attn._expand_kv(q, mem_k, mem_v),
+                                   causal=False,
                                    attn_softcap=cfg.attn_logit_softcap)
-        x = x + attn.o_proj(params["cross"], ctx)
+        x = _residual(x, attn.o_proj(params["cross"], ctx))
         cache["cross"] = {"k": mem_k, "v": mem_v}
     h, aux = _ffn_apply(params["ffn"],
-                        rms_norm(x, params["ln2"], cfg.norm_eps), cfg, ep)
-    return x + h, cache, aux
+                        _norm(x, params["ln2"], cfg), cfg, ep)
+    return _residual(x, h), cache, aux
 
 
 def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
@@ -228,31 +246,31 @@ def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
     returns a new entry and leaves ``cache`` as it was."""
     if kind == "ssd":
         h, state = ssd_step(
-            params["ssd"], rms_norm(x, params["ln1"], cfg.norm_eps), cache,
+            params["ssd"], _norm(x, params["ln1"], cfg), cache,
             cfg)
-        return x + h, state
+        return _residual(x, h), state
     if kind == "rec":
         h, state = rglru_step(
-            params["rec"], rms_norm(x, params["ln1"], cfg.norm_eps), cache,
+            params["rec"], _norm(x, params["ln1"], cfg), cache,
             cfg)
-        x = x + h
-        x = x + mlp_apply(params["ffn"],
-                          rms_norm(x, params["ln2"], cfg.norm_eps), cfg.act)
+        x = _residual(x, h)
+        x = _residual(x, mlp_apply(params["ffn"],
+                                   _norm(x, params["ln2"], cfg), cfg.act))
         return x, state
     h, _ = attn.attention_step(
-        params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps), position,
+        params["attn"], _norm(x, params["ln1"], cfg), position,
         cache["self"], cache_len, cfg, local=kind == "local_attn",
     )
-    x = x + h
+    x = _residual(x, h)
     if "cross" in cache and "cross" in params:
         h, _ = attn.attention_step(
-            params["cross"], rms_norm(x, params["ln_cross"], cfg.norm_eps),
+            params["cross"], _norm(x, params["ln_cross"], cfg),
             position, cache["cross"], cache_len, cfg, local=False, cross=True,
         )
-        x = x + h
-    h, _ = _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
+        x = _residual(x, h)
+    h, _ = _ffn_apply(params["ffn"], _norm(x, params["ln2"], cfg),
                       cfg, ep)
-    return x + h, cache
+    return _residual(x, h), cache
 
 
 # --------------------------------------------------------------------------- encoder
@@ -286,15 +304,16 @@ def encoder_apply(params, embeds: torch.Tensor, cfg: ModelConfig,
     for layer in params["blocks"]:
         x = (checkpoint(body, x, layer, use_reentrant=False) if remat
              else body(x, layer))
-    return rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return _norm(x, params["final_ln"], cfg)
 
 
 # --------------------------------------------------------------------------- decoder
 
 
 def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = embed_logits(params["embed"], x)
+    x = _norm(x, params["final_ln"], cfg)
+    logits = constrain(embed_logits(params["embed"], x),
+                       (BATCH_AXES, None, MODEL_AXIS))
     if cfg.final_logit_softcap > 0:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits
@@ -365,7 +384,7 @@ def decoder_apply(
     a checkpoint. ``memory`` is the encoder's output (B, S_enc, D), which
     an encoder-decoder's cross blocks attend to."""
     remat = _remat(cfg, want_cache)
-    x = embed_lookup(params["embed"], tokens, cfg.d_model)
+    x = constrain_bsd(embed_lookup(params["embed"], tokens, cfg.d_model))
     aux: dict = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                  for k in (_MOE_AUX if cfg.is_moe else ())}
     cache: dict = {
@@ -404,7 +423,7 @@ def decode_step(
     """One token through all layers. Returns (logits (B, 1, V), cache),
     the cache dict updated in place: attention entries at row ``cache_len -
     1``, state entries with the step's new ``h`` and ``conv``."""
-    x = embed_lookup(params["embed"], token, cfg.d_model)
+    x = constrain_bsd(embed_lookup(params["embed"], token, cfg.d_model))
     for kind, layer, where in layers_in_order(params, cfg):
         entry = _entry(cache, where)
         x, new = block_apply_step(layer, x, position, entry, cache_len, cfg,

@@ -55,6 +55,7 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..compat import host_tensor
 from ..core.metainfo import MetaInfo, assemble
@@ -180,6 +181,9 @@ def save_checkpoint(
         "extra": extra or {},
     }
     for key, (layers, stacked) in sorted(reference_layout(tree).items()):
+        # a DTensor leaf (a state in the rules' layout) is written whole
+        layers = [t.full_tensor() if isinstance(t, DTensor) else t
+                  for t in layers]
         arr = (torch.stack([t.detach().cpu() for t in layers]) if stacked
                else layers[0])
         fname = key.replace(_SEP, "__") + ".npy"

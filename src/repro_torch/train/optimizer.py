@@ -24,7 +24,9 @@ import math
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..compat import all_reduce
 from ..configs.base import TrainConfig
 
 Params = Any
@@ -70,7 +72,10 @@ def adamw_init(params: Params, tcfg: TrainConfig) -> OptState:
     leaves = named(params)
 
     def zeros() -> dict:
-        return {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+        # a DTensor parameter's moments are DTensors of its placements
+        return {k: torch.zeros_like(p, dtype=dt, requires_grad=False)
+                if isinstance(p, DTensor) else
+                torch.zeros(p.shape, dtype=dt, device=p.device)
                 for k, p in leaves.items()}
 
     device = next(iter(leaves.values())).device
@@ -83,8 +88,16 @@ def adamw_init(params: Params, tcfg: TrainConfig) -> OptState:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+    """The L2 norm over every leaf, whole leaves for DTensors (their
+    shards' sums of squares added by DTensor), as a plain tensor."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in named(tree).values()))
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
+
+
+def _local(t):
+    """A DTensor's local shard (in place), or the tensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -107,7 +120,9 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: OptState,
     in ``tcfg.opt_state_dtype``, params updated in their own dtype. The
     parameters and the moments are written in place (each gradient is
     clipped as it is used, as :func:`clip_by_global_norm` would); returns
-    ``(params, new state, {"lr", "grad_norm"})``."""
+    ``(params, new state, {"lr", "grad_norm"})``. DTensor parameters,
+    gradients and moments (of one placement a leaf) are updated shard by
+    shard; the norm is over whole leaves."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, tcfg.grad_clip)
     step = state.step + 1
@@ -117,15 +132,16 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: OptState,
     c2 = 1.0 - b2 ** step.to(torch.float32)
     sdt = _dtype(tcfg.opt_state_dtype)
     for name, p in named(params).items():
-        g = grads[name]
+        g, p = _local(grads[name]), _local(p)
+        mu, nu = _local(state.mu[name]), _local(state.nu[name])
         g32 = (g.to(torch.float32) * scale).to(g.dtype).to(torch.float32)
-        m32 = b1 * state.mu[name].to(torch.float32) + (1 - b1) * g32
-        v32 = b2 * state.nu[name].to(torch.float32) + (1 - b2) * torch.square(g32)
+        m32 = b1 * mu.to(torch.float32) + (1 - b1) * g32
+        v32 = b2 * nu.to(torch.float32) + (1 - b2) * torch.square(g32)
         del g32
         mh = m32 / c1
         vh = v32 / c2
-        state.mu[name].copy_(m32.to(sdt))
-        state.nu[name].copy_(v32.to(sdt))
+        mu.copy_(m32.to(sdt))
+        nu.copy_(v32.to(sdt))
         del m32, v32
         delta = mh / (torch.sqrt(vh) + 1e-8) + tcfg.weight_decay * p.to(torch.float32)
         del mh, vh
@@ -138,24 +154,32 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: OptState,
 # --------------------------------------------------------------------------- int8 error-feedback
 
 
-def quantize_tensor(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8. Returns (q int8, scale float32)."""
+def quantize_tensor(g: torch.Tensor, max_groups=()
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8. Returns (q int8, scale float32). With
+    ``max_groups`` (the groups over whose ranks ``g`` is split) the scale
+    is the whole tensor's: its largest magnitude all-reduced."""
     g32 = g.to(torch.float32)
-    scale = torch.clamp(torch.max(torch.abs(g32)), min=1e-30) / 127.0
+    amax = torch.max(torch.abs(g32))
+    for group in max_groups:
+        amax = all_reduce(amax, "max", group)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
 def quantize_grads_with_feedback(
-    grads: Mapping[str, torch.Tensor], residual: Mapping[str, torch.Tensor]
+    grads: Mapping[str, torch.Tensor], residual: Mapping[str, torch.Tensor],
+    max_groups=()
 ) -> tuple[dict, dict, dict]:
     """(q by name, scale by name, new residual by name); the residual
-    carries what int8 lost."""
+    carries what int8 lost. ``max_groups``: as :func:`quantize_tensor`'s,
+    for shards of the leaves."""
     q_tree, s_tree, r_tree = {}, {}, {}
     for k, g in grads.items():
         r = residual[k]
         g32 = g.to(torch.float32) + r.to(torch.float32)
-        q, s = quantize_tensor(g32)
+        q, s = quantize_tensor(g32, max_groups)
         deq = q.to(torch.float32) * s
         q_tree[k], s_tree[k], r_tree[k] = q, s, (g32 - deq).to(r.dtype)
     return q_tree, s_tree, r_tree

@@ -34,7 +34,9 @@ from ..data.pipeline import Batch, DataState, HostBatcher
 from ..models.model import ModelBundle
 from . import checkpoint as ckpt
 from .fault_tolerance import FailurePlan, Preemption, StragglerDetector
-from .train_step import TrainState, init_train_state, make_train_step
+from .train_step import (
+    TrainState, init_train_state, make_train_step, shard_train_state,
+)
 
 
 @dataclasses.dataclass
@@ -72,6 +74,7 @@ class Trainer:
         self.failure_plan = failure_plan or FailurePlan()
         self.straggler = StragglerDetector()
         self.log = log_fn
+        self.mesh = mesh
         self.train_step = make_train_step(bundle, tcfg, mesh=mesh,
                                           pod_axis=pod_axis)
 
@@ -98,14 +101,17 @@ class Trainer:
                          ) -> tuple[TrainState, int]:
         last = ckpt.latest_step(self.cfg.ckpt_dir)
         state = init_train_state(self.bundle, self.tcfg, generator)
-        if last is None:
-            return state, 0
-        _, extra = ckpt.load_checkpoint(
-            self.cfg.ckpt_dir, {"params": state.params, "opt": state.opt},
-            step=last)
-        self.batcher.state = DataState.from_dict(extra["data"])
-        self.log(f"[trainer] resumed from step {last}")
-        return state, last
+        step = 0
+        if last is not None:
+            _, extra = ckpt.load_checkpoint(
+                self.cfg.ckpt_dir, {"params": state.params,
+                                    "opt": state.opt}, step=last)
+            self.batcher.state = DataState.from_dict(extra["data"])
+            self.log(f"[trainer] resumed from step {last}")
+            step = last
+        if self.mesh is not None:       # the mesh step's layout
+            state = shard_train_state(state, self.bundle, self.mesh)
+        return state, step
 
     # ------------------------------------------------------------- loop
     def run(self, num_steps: int,

@@ -21,8 +21,7 @@ import torch
 from repro.models import attention as jax_attn
 from repro_torch.kernels.attention import (
     attention_bhsd_ref, attention_bwd_ref, attention_bwd_rounded_ref,
-    flash_attention, flash_attention_bwd_cuda,
-    flash_attention_bwd_replaced_cuda, flash_attention_cuda,
+    flash_attention, flash_attention_bwd_cuda, flash_attention_cuda,
 )
 from repro_torch.kernels.attention.ref import bf16_terms
 
@@ -129,28 +128,22 @@ def test_rounded_backward_takes_bf16_operands():
 
 def test_cpu_gradients_launch_no_backward_kernel():
     """A bf16 gradient on CPU tensors takes the plain backward: no K4b
-    launch, no route counted, the SIMT control untouched; the control and
-    the kernel refuse CPU tensors without counting."""
+    launch, no route counted; the kernel refuses CPU tensors without
+    counting."""
     arrays = _inputs(CASES[0])
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
                for a in arrays[:3])
     before = (flash_attention_cuda.launches,
               flash_attention_bwd_cuda.launches,
-              dict(flash_attention_bwd_cuda.route_launches),
-              flash_attention_bwd_replaced_cuda.launches)
+              dict(flash_attention_bwd_cuda.route_launches))
     out = flash_attention(q, k, v, causal=True, softcap=50.0)
     grads = torch.autograd.grad(out, (q, k, v),
                                 torch.from_numpy(arrays[3]).to(torch.bfloat16))
     assert all(x.dtype == torch.bfloat16 for x in grads)
     qb, kb, vb = (t.detach().transpose(1, 2) for t in (q, k, v))
     o, lse = attention_bhsd_ref(qb, kb, vb, return_lse=True)
-    for fn in (flash_attention_bwd_cuda, flash_attention_bwd_replaced_cuda):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            fn(qb, kb, vb, o, o, lse)
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention_bwd_replaced_cuda(*(t.float() for t in (qb, kb, vb,
-                                                               o, o)), lse)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_cuda(qb, kb, vb, o, o, lse)
     assert (flash_attention_cuda.launches,
             flash_attention_bwd_cuda.launches,
-            dict(flash_attention_bwd_cuda.route_launches),
-            flash_attention_bwd_replaced_cuda.launches) == before
+            dict(flash_attention_bwd_cuda.route_launches)) == before

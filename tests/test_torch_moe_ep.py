@@ -3,9 +3,11 @@ path on the CPU.
 
 Each case runs one process a rank (each with its own timeout, as
 ``test_torch_collective.py`` runs the fabric): every rank builds the same
-``DeviceMesh``, the same parameters and input, runs ``moe_apply`` through
-``EPContext(mesh)``, differentiates ``sum(y**2) + lb`` and saves its
-output, aux losses and gradients, which must be the same on every rank.
+``DeviceMesh`` and input and the same parameters, keeps only its rules'
+shard of each (``Partitioner``: its own experts), runs ``moe_apply``
+through ``EPContext(mesh)`` on those DTensors and the whole input,
+differentiates ``sum(y**2) + lb`` and saves its output, aux losses and
+gradients (gathered), which must be the same on every rank.
 Here they are held against the local path on the same parameters:
 
 - the gather layout (experts over ``model``, the batch over ``data``) on
@@ -45,7 +47,7 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 RANK_SCRIPT = r"""
-import dataclasses, json, sys
+import dataclasses, json, math, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -53,6 +55,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import get_config
 from repro_torch.models.layers import init_params
 from repro_torch.models.moe import EPContext, moe_apply, moe_specs
+from repro_torch.launch.partitioning import Partitioner, shard_tensor
+from torch.distributed.tensor import DTensor
 
 rank, world, port, spec, out = (int(sys.argv[1]), int(sys.argv[2]),
                                 sys.argv[3], json.loads(sys.argv[4]),
@@ -65,15 +69,24 @@ cfg = dataclasses.replace(
     get_config("dbrx_132b").reduce(num_experts=4, top_k=2, d_model=32,
                                    d_ff=64, vocab_size=128),
     capacity_factor=spec["capacity_factor"], moe_layout=spec["layout"])
-params = {k: v.requires_grad_() for k, v in init_params(
-    moe_specs(cfg), torch.Generator().manual_seed(0), torch.float32,
-    "cpu").items()}
+specs = moe_specs(cfg)
+part = Partitioner(mesh)
+full = init_params(specs, torch.Generator().manual_seed(0), torch.float32,
+                   "cpu")
+# each rank holds its rules' shard of every leaf (its own experts)
+params = {k: shard_tensor(v, part.sharding(v.shape, specs[k].axes))
+          .requires_grad_() for k, v in full.items()}
+for k, p in params.items():
+    assert p.to_local().numel() * math.prod(
+        n for n, pl in zip(mesh.shape, p.placements) if pl.is_shard()) \
+        == full[k].numel(), k
 x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 8, 32))
                      .astype(np.float32)).requires_grad_()
 y, aux = moe_apply(params, x, cfg, EPContext(mesh=mesh))
 names = sorted(params)
 grads = torch.autograd.grad((y ** 2).sum() + aux["lb"],
                             [params[k] for k in names] + [x])
+grads = [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
 np.savez(out, y=y.detach().numpy(), lb=aux["lb"].detach().numpy(),
          z=aux["z"].detach().numpy(),
          **{"g_" + k: g.numpy() for k, g in zip(names + ["x"], grads)})

@@ -306,11 +306,20 @@ def test_eval_step_and_the_mesh_refusal(tiny):
     loss, _ = pb.loss_fn(state.params, _port_batch(batch))
     assert float(m["loss"]) == float(loss.detach())
     assert not m["loss"].requires_grad
-    # the mesh step is ported; its layout pin for XLA's partitioner
-    # (grad_shardings=) still waits for the dry-run slice
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        make_train_step(pb, TrainConfig(grad_compression="int8"), mesh=object(),
+    # the layout pin (grad_shardings=) needs a mesh; on one, the step
+    # refuses a state that is not in the rules' layout
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_train_step(pb, TrainConfig(grad_compression="int8"),
                         pod_axis="pod", grad_shardings={})
+    from repro_torch.launch import make_test_mesh
+
+    mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"), device="cpu")
+    try:
+        with pytest.raises(TypeError, match="shard_train_state"):
+            make_train_step(pb, TrainConfig(), mesh=mesh)(
+                state, _port_batch(batch))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # --------------------------------------------------------------------------- trainer

@@ -31,7 +31,10 @@
   a quarter step in under 1% of its elements; the loss, NLL, accuracy
   and learning rate at 1e-5 and the gradient norm (of the dequantized
   mean, which flips move) at 1e-3.
-- ``grad_shardings=`` raises.
+
+Both mesh cases hold the state in the rules' layout
+(``shard_train_state``); each leaf is gathered (``full_tensor()``) to be
+compared, each pod's residual being its own.
 """
 
 import jax
@@ -60,7 +63,12 @@ from repro_torch.launch import make_test_mesh
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import TrainState, make_train_step
+from repro_torch.train.train_step import (
+    TrainState, make_train_step, shard_train_state)
+from torch.distributed.tensor import DTensor
+
+def full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 bundle = build_model(get_config(SPEC["arch"]).reduce(), "cpu")
 tcfg = TrainConfig(**SPEC["tcfg"])
@@ -72,11 +80,12 @@ if SPEC["mesh"] is None:
     step = make_train_step(bundle, tcfg)
 else:
     mesh = make_test_mesh(tuple(SPEC["mesh"]), ("pod", "data", "model"), device="cpu")
+    state = shard_train_state(state, bundle, mesh)
     step = make_train_step(bundle, tcfg, mesh=mesh, pod_axis="pod")
 out = {}
 quantize = opt.quantize_grads_with_feedback
-def recording(grads, residual):   # each leaf's scale, step by step
-    q, scales, resid = quantize(grads, residual)
+def recording(grads, residual, **kw):   # each leaf's scale, step by step
+    q, scales, resid = quantize(grads, residual, **kw)
     for k, v in scales.items():
         out[f"scale:{i}:{k}"] = v.numpy()
     return q, scales, resid
@@ -87,14 +96,17 @@ for i in range(SPEC["steps"]):
     for k, v in metrics.items():
         out[f"metric:{i}:{k}"] = v.numpy()
     if i == 0:
-        out.update({"mu1:" + k: v.float().numpy() for k, v in
+        # copies: a float32 moment's .float() is the live tensor
+        out.update({"mu1:" + k: v.float().numpy().copy() for k, v in
                     ckpt.reference_layout(state.opt.mu).items()
-                    for v in [torch.stack(v[0]) if v[1] else v[0][0]]})
+                    for v in [torch.stack([full(t) for t in v[0]])
+                              if v[1] else full(v[0][0])]})
 tree = {"params": state.params, "mu": state.opt.mu, "nu": state.opt.nu}
 if state.opt.residual is not None:
     tree["residual"] = state.opt.residual
 for k, (ts, st) in ckpt.reference_layout(tree).items():
-    out[k] = (torch.stack(ts) if st else ts[0]).detach().float().numpy()
+    ts = [full(t.detach()) for t in ts]
+    out[k] = (torch.stack(ts) if st else ts[0]).float().numpy()
 np.savez(OUT, **out)
 """
 
@@ -258,9 +270,3 @@ def test_int8_cross_pod_step_matches_the_reference(tmp_path, shared):
             np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
     assert any(not np.array_equal(ranks[0][k], ranks[1][k])
                for k in ranks[0] if k.startswith("residual/"))
-
-
-def test_grad_shardings_raises():
-    pb = build_model(get_config(ARCH).reduce(), "cpu")
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        make_train_step(pb, TrainConfig(**TCFG), grad_shardings={})
