@@ -77,6 +77,27 @@ imports nothing of JAX and nothing of the JAX package. Phases:
    that the bf16-probability control must miss, each launch on its
    dtype's route, timed in bfloat16 beside the plain version, SDPA and
    the bound;
+5a. K4 and K4b with a query offset (``q_offset``, the global index of
+   query row 0), at gemma2's attention (Hq 8 over 4, d 256, softcap 50):
+   phase 11's 4,608-token prompts (B 4) prefilled in four chunks of 1,152
+   rows, each over its prefix of keys, at window 0 and 4096, each chunk
+   against its plain version with the same offset in phase 5's bfloat16
+   band (the bf16-probability control outside), the chunks stacked
+   against the whole-prompt call in the same band, and each chunk past
+   the first launched at offset 0 as the control that must fall outside;
+   a ragged offset (1,000 rows from row 1,000 over 2,000 keys) at window
+   0 and 777 in float32 (the SIMT route, 2e-5) and bfloat16, each launch
+   on its dtype's route, with the offset-0 control; a call that leaves a
+   query row no live key refused with ``ValueError`` by the public op and
+   both wrappers, no kernel launched; K4b at the second half of phase
+   13's microbatch (q ``(2, 8, 1024, 256)`` over k/v ``(2, 4, 2048,
+   256)``, ``q_offset`` 1,024, ``lse`` from K4 with the offset) in both
+   dtypes within ``K4B_REL_L2``, bit-identical twice, the earlier
+   controls and the offset-0 control outside. Each new K4 shape and the
+   K4b one timed beside the plain version,
+   ``scaled_dot_product_attention`` with an explicit boolean mask
+   (softcap 0; its backward for K4b) and the bound from the live pairs
+   counted with the offset;
 6. K5 (chunked SSD) on the card against its plain version, y and the
    final state: the reference's three cases with and without an initial
    state (also through the public ``ops.ssd_mixer``) and a ragged
@@ -230,6 +251,21 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     repro_torch.launch.elastic --ckpt-dir`` on its checkpoint, on the card
     at their reduced config, each printing its ``done step=``, ``restored
     from`` or ``resharded ... data cursor`` line;
+16a. the user walkthroughs, each ``python -m
+    repro_torch.examples.<name>``'s ``main`` called in this process (so
+    that the kernel counters see its launches) with its standard output
+    logged: ``quickstart`` (its four stages, "all four stages OK"),
+    ``serve_lm`` (every request served on the card), ``train_lm --preset
+    paper-100m`` (300 steps; the median train step, synchronised, the
+    wall a step with checkpoints included, and the first and last logged
+    loss) and ``train_lm --preset smoke --inject-crash-at 50`` (one
+    restart, step 100), K4 launched by each and K4b by the three that
+    train (the reduced configs compute in float32: the SIMT routes),
+    every loss finite; the first K4 and K4b call of each signature in
+    each run kept and held against the plain version on its own inputs
+    (K4 elementwise within the reference's float32 tolerance, which the
+    bf16-probability control breaks; K4b within ``K4B_REL_L2``, which the
+    delta-zero control misses);
 17. the MoE serving paths, ``dbrx_132b`` (16 experts, top 4) at 8 of its
     40 layers and ``arctic_480b`` (128 experts, top 2, a dense residual) at
     2 of its 35, at full width (capacity factor 1.25) from seed 21, each
@@ -316,8 +352,10 @@ imports nothing of JAX and nothing of the JAX package. Phases:
     every float32 launch the SIMT one, as the launch that ran reports its
     route (each wrapper counts launches by dtype and route), and each
     path's launches by route must add up to its count;
-23. one JSON line of per-kernel numbers (K4's with its MoE-shape
-    readings), then the last line ``{"ok": true, "device": {...}}``.
+23. one JSON line of per-kernel numbers (K4's with its MoE-shape and
+    offset readings, K4b's with its offset readings, the walkthroughs'
+    launches by path), then the last line ``{"ok": true, "device":
+    {...}}``.
 
 The parameter count of every serving path is checked against the
 config's, block kind by block kind.
@@ -520,6 +558,17 @@ K4B_REL_L2 = {"float32": 1e-5, "bfloat16": 2e-4}
 # live pair: S and dP in both kernels, and dV, dK and dQ on P or dS split in
 # two bf16 terms (20 d)
 K4B_EXECUTED = 2
+# phase 5a: the chunked prefill of phase 11's prompts in K4_CHUNKS chunks
+# (each chunk's rows over every key up to its end, q_offset its first
+# row) at the global layers' window 0 and the local layers' 4096; a ragged
+# offset (1,000 rows from row 1,000 over 2,000 keys: no tile edge lines
+# up) at window 0 and 777 (which bites there); K4b with the offset at the
+# second half of phase 13's microbatch, ((b, hq, hkv, sq, skv, d),
+# q_offset, softcap)
+K4_CHUNKS = 4
+K4_OFFSET_WINDOWS = (0, 4096)
+K4_RAGGED = dict(b=2, sq=1000, skv=2000, q_offset=1000, windows=(0, 777))
+K4B_OFFSET = ((2, 8, 4, 1024, 2048, 256), 1024, 50.0)
 # float32 gradient checks at full width and reduced depth: the kernels
 # against their plain versions, one step, relative L2 per leaf, and the
 # controls that must fall outside each arch's band. gemma2's query
@@ -646,6 +695,11 @@ K4_SEAMLESS = {"encoder": (4, 16, 16, 4096, 4096, 64),
                "cross, ragged source": (4, 16, 16, 512, 4000, 64)}
 # the dry-run's production-mesh cells of gemma2_2b (shape, mesh), each a
 # process of its own (the fake default group is global to its process)
+# phase 16a: the user walkthroughs, (module, arguments) of ``python -m
+# repro_torch.examples.<module>``, on the card at the reference's defaults
+WALKTHROUGHS = [("quickstart", []), ("serve_lm", []),
+                ("train_lm", ["--preset", "paper-100m"]),
+                ("train_lm", ["--preset", "smoke", "--inject-crash-at", "50"])]
 DRYRUN_CELLS = [("train_4k", "both"), ("prefill_32k", "single"),
                 ("decode_32k", "single")]
 # the dry-run against the card: its predicted peak within this share of
@@ -1385,11 +1439,13 @@ def run_broadcast_path(kernels, nbytes=BUNDLE_BYTES, device=None):
 # ------------------------------------------------------------------ K4
 
 
-def live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """The (q, k) pairs that K4's masks let through (every key valid)."""
+def live_pairs(sq: int, skv: int, causal: bool, window: int,
+               q_offset: int = 0) -> int:
+    """The (q, k) pairs that K4's masks let through (every key valid),
+    query row ``i`` the global row ``q_offset + i``."""
     import numpy as np
 
-    q = np.arange(sq)[:, None]
+    q = q_offset + np.arange(sq)[:, None]
     k = np.arange(skv)[None, :]
     mask = np.ones((sq, skv), bool)
     if causal:
@@ -1414,10 +1470,28 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
+def live_mask(sq, skv, *, causal=True, window=0, q_offset=0,
+              skv_valid=None, device=None):
+    """The (Sq, Skv) boolean mask of the (q, k) pairs that K4's masks let
+    through, query row ``i`` the global row ``q_offset + i``: the plain
+    version's, and ``scaled_dot_product_attention``'s ``attn_mask``."""
+    import torch
+
+    qi = q_offset + torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(skv, device=device)[None, :]
+    mask = (ki < (skv if skv_valid is None else skv_valid)).expand(sq, skv)
+    if causal:
+        mask = mask & (qi >= ki)
+    if window > 0:
+        mask = mask & (qi - ki < window)
+    return mask
+
+
 def attention_scores(q, k, *, causal=True, window=0, softcap=0.0,
-                     skv_valid=None):
+                     skv_valid=None, q_offset=0):
     """The plain version's scaled (and soft-capped) float32 scores (B, Hkv,
-    Hq / Hkv, Sq, Skv) and its mask of live (q, k) pairs (Sq, Skv)."""
+    Hq / Hkv, Sq, Skv) and its mask of live (q, k) pairs (Sq, Skv), query
+    row ``i`` the global row ``q_offset + i``."""
     import math
 
     import torch
@@ -1428,18 +1502,13 @@ def attention_scores(q, k, *, causal=True, window=0, softcap=0.0,
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32))
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    qi = torch.arange(sq, device=q.device)[:, None]
-    ki = torch.arange(skv, device=q.device)[None, :]
-    mask = (ki < (skv if skv_valid is None else skv_valid)).expand(sq, skv)
-    if causal:
-        mask = mask & (qi >= ki)
-    if window > 0:
-        mask = mask & (qi - ki < window)
-    return s, mask
+    return s, live_mask(sq, skv, causal=causal, window=window,
+                        q_offset=q_offset, skv_valid=skv_valid,
+                        device=q.device)
 
 
 def attention_bf16_probs(q, k, v, *, causal=True, window=0, softcap=0.0,
-                         skv_valid=None, split=False):
+                         skv_valid=None, q_offset=0, split=False):
     """The lower-precision control for K4's bands: the plain version with
     its probabilities rounded to bfloat16 before P·V, as a kernel that
     feeds bf16 P to the tensor cores computes; with ``split``, as K4's
@@ -1449,7 +1518,8 @@ def attention_bf16_probs(q, k, v, *, causal=True, window=0, softcap=0.0,
 
     b, hq, sq, d = q.shape
     s, mask = attention_scores(q, k, causal=causal, window=window,
-                               softcap=softcap, skv_valid=skv_valid)
+                               softcap=softcap, skv_valid=skv_valid,
+                               q_offset=q_offset)
     p = torch.softmax(s.masked_fill(~mask, -2e38), dim=-1)
     hi = p.to(torch.bfloat16).to(torch.float32)
     p = hi + (p - hi).to(torch.bfloat16).to(torch.float32) if split else hi
@@ -1604,14 +1674,16 @@ def check_ptxas(what: str, report: str, kernels: dict) -> dict:
     return found
 
 
-def k4_bound(q, k, *, window, causal=True):
+def k4_bound(q, k, *, window, causal=True, q_offset=0):
     """K4's bound at bf16 q (B, Hq, Sq, d) and k/v (B, Hkv, Skv, d): q, k,
     v read once and the output written once; 4·d operations per live (q,
-    k) pair and query head (q·k and p·v), at the bf16 tensor-core rate.
-    Returns (ms, bound_by, operations)."""
+    k) pair and query head (q·k and p·v; the pairs counted with the query
+    offset), at the bf16 tensor-core rate. Returns (ms, bound_by,
+    operations)."""
     b, hq, sq, d = q.shape
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * b * hq * d * live_pairs(sq, k.shape[2], causal, window)
+    flops = 4 * b * hq * d * live_pairs(sq, k.shape[2], causal, window,
+                                        q_offset)
     return (*bound(nbytes, flops, BF16_TENSOR_OPS_PER_S), flops)
 
 
@@ -1751,9 +1823,7 @@ def check_k4(k4, dev):
     rg_plain_ms = median_ms(lambda: k4.attention_bhsd_ref(q, k, v, **kw),
                             reps=3)
     ke, ve = (t.repeat_interleave(rhq // rhkv, dim=1) for t in (k, v))
-    qi = torch.arange(rs, device=dev)[:, None]
-    ki = torch.arange(rs, device=dev)[None, :]
-    mask = (qi >= ki) & (qi - ki < window)
+    mask = live_mask(rs, rs, window=window, device=dev)
     rg_library_ms = median_ms(lambda: F.scaled_dot_product_attention(
         q, ke, ve, attn_mask=mask), reps=10)
     rg_bound_ms, rg_bound_by, rg_flops = k4_bound(q, k, window=window)
@@ -3266,7 +3336,7 @@ def run_state_serving_path(arch, kernels, counters, device=None):
 # ------------------------------------------------------------------ K4b
 
 
-def k4b_bound(q, k, *, window, causal=True):
+def k4b_bound(q, k, *, window, causal=True, q_offset=0):
     """K4b's bound at q (B, Hq, Sq, d) and k/v (B, Hkv, Skv, d) of q's
     dtype: q, k, v, the output, its gradient and lse read once and dq,
     dk, dv written once; 10·d operations per live (q, k) pair and query
@@ -3278,7 +3348,8 @@ def k4b_bound(q, k, *, window, causal=True):
     b, hq, sq, d = q.shape
     size = q.element_size()
     nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * sq
-    flops = 10 * b * hq * d * live_pairs(sq, k.shape[2], causal, window)
+    flops = 10 * b * hq * d * live_pairs(sq, k.shape[2], causal, window,
+                                         q_offset)
     peak = (BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16
             else F32_OPS_PER_S)
     return (*bound(nbytes, flops, peak), flops)
@@ -3553,6 +3624,349 @@ def k4b_seamless_times(k4, gen):
         del q, k, v, do, o, lse, qs, ks, vs, lib_out
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------------ K4 and K4b with a query offset
+
+
+def k4_offset_record(what, got, want, kw, q, k, v):
+    """One K4 call with a query offset held against its plain version:
+    elementwise at ``K4_TOL`` of the output's dtype, and in bfloat16 also
+    within ``K4_REL_L2``, which the bf16-probability control must miss;
+    returns the readings."""
+    import torch
+
+    dt = str(got.dtype)[6:]
+    atol, rtol = K4_TOL[dt]
+    g32, w32 = got.to(torch.float32), want.to(torch.float32)
+    torch.cuda.synchronize()
+    err = float((g32 - w32).abs().max())
+    bad = int((~torch.isclose(g32, w32, atol=atol, rtol=rtol)).sum())
+    if not torch.isfinite(g32).all() or bad:
+        fail(f"K4 {what}: {bad} values outside atol {atol} rtol {rtol} of "
+             f"the plain version (max |diff| {err})")
+    reading = {"max_abs_err": err, "rel_l2": rel_l2(got, want)}
+    if dt == "bfloat16":
+        reading["control_rel_l2"] = rel_l2(
+            attention_bf16_probs(q, k, v, **kw), want)
+        if (reading["rel_l2"] > K4_REL_L2
+                or reading["control_rel_l2"] <= K4_REL_L2):
+            fail(f"K4 {what}: relative L2 {reading['rel_l2']}, the "
+                 f"bf16-probability control {reading['control_rel_l2']}, "
+                 f"band {K4_REL_L2}")
+    log(f"K4 {what}: max |diff| {err:.3g} within atol {atol:.3g} rtol "
+        f"{rtol:.3g}; " + json.dumps({n: float(f"{x:.4g}")
+                                      for n, x in reading.items()}))
+    return reading
+
+
+def offset_control(k4, what, q, k, v, want, kw):
+    """The same call launched with ``q_offset=0``: it must fall outside
+    ``K4_REL_L2`` of the offset's plain version, which shows that the
+    offset reaches the kernel's masks. Returns its relative L2."""
+    wrong = rel_l2(k4.flash_attention_cuda(q, k, v, **dict(kw, q_offset=0)),
+                   want)
+    log(f"K4 {what}: the offset-0 control reads {wrong:.4g} "
+        f"(band {K4_REL_L2:.4g})")
+    if wrong <= K4_REL_L2:
+        fail(f"K4 {what}: launched with q_offset 0 it reads {wrong}, inside "
+             f"the band {K4_REL_L2}: the offset does not reach the masks")
+    return wrong
+
+
+def k4_offset_times(k4, q, k, v, kw, lse=False):
+    """K4 with an offset timed as phase 5 times it: the kernel, its plain
+    version, ``scaled_dot_product_attention`` with the explicit boolean
+    mask (softcap 0: it has none) on key/value heads expanded outside the
+    timing, and the bound from the live pairs counted with the offset."""
+    import torch.nn.functional as F
+
+    hq, sq, skv = q.shape[1], q.shape[2], k.shape[2]
+    extra = dict(return_lse=True) if lse else {}
+    ms = median_ms(lambda: k4.flash_attention_cuda(q, k, v, **kw, **extra),
+                   reps=10)
+    plain_ms = median_ms(lambda: k4.attention_bhsd_ref(q, k, v, **kw,
+                                                       **extra), reps=3)
+    ke, ve = (t.repeat_interleave(hq // k.shape[1], dim=1) for t in (k, v))
+    mask = live_mask(sq, skv, causal=kw["causal"], window=kw["window"],
+                     q_offset=kw["q_offset"], device=q.device)
+    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask), reps=10)
+    bound_ms, bound_by, flops = k4_bound(q, k, window=kw["window"],
+                                         causal=kw["causal"],
+                                         q_offset=kw["q_offset"])
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(attn_mask=live "
+                       "pairs), softcap 0",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "gflop": flops / 1e9,
+            "tflops": flops / ms / 1e9}
+
+
+def check_k4_offset(k4, dev):
+    """Phase 5a: K4 and K4b with a query offset at gemma2's attention (Hq 8
+    over 4, d 256, softcap 50). The chunked prefill of phase 11's prompts
+    (``K4_CHUNKS`` chunks of 1,152 rows, each over its prefix of keys,
+    ``q_offset`` its first row) at windows 0 and 4096, each chunk against
+    its plain version, the chunks stacked against the whole-prompt call,
+    and each chunk past the first launched at offset 0 as the control; the
+    ragged offset (``K4_RAGGED``) in both dtypes; the refusal of a call
+    that leaves a row no live key; K4b at the second half of phase 13's
+    microbatch (``K4B_OFFSET``) in both dtypes. Each new K4 shape and the
+    K4b one timed (``k4_offset_times``). Returns ({"chunked_prefill",
+    "ragged", "dead_row"}, K4b's record)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+    hq, hkv, d, cap = 8, 4, 256, 50.0
+
+    def qkv(b, sq, skv, dtype, q_scale=1.0):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                 (b, hkv, skv, d)))
+        return q.mul_(q_scale).to(dtype), k.to(dtype), v.to(dtype)
+
+    def launched(dtype, fn):
+        """``fn()`` and the route it launched, one launch of the dtype's."""
+        before = collections.Counter(k4.flash_attention_cuda.route_launches)
+        got = fn()
+        route = by_route(collections.Counter(
+            k4.flash_attention_cuda.route_launches) - before)
+        dt = str(dtype)[6:]
+        if route != {f"{dt}/{DTYPE_ROUTE[dt]}": 1}:
+            fail(f"K4 {dt} with an offset launched {route}")
+        return got
+
+    # the chunked prefill of phase 11's prompts
+    b, s = 4, SERVE_PROMPT
+    n = s // K4_CHUNKS
+    q, k, v = qkv(b, s, s, bf16)
+    chunked = {}
+    for window in K4_OFFSET_WINDOWS:
+        base = dict(causal=True, window=window, softcap=cap, q_offset=0)
+        whole = k4.flash_attention_cuda(q, k, v, **base)
+        parts, rows = [], []
+        for c in range(K4_CHUNKS):
+            lo, hi = c * n, (c + 1) * n
+            qc, kc, vc = q[:, :, lo:hi], k[:, :, :hi], v[:, :, :hi]
+            kw = dict(base, q_offset=lo)
+            what = (f"chunk {c} of the {s}-token prefill (q {tuple(qc.shape)}"
+                    f" over k/v {tuple(kc.shape)}, q_offset {lo}, window "
+                    f"{window})")
+            got = launched(bf16, lambda: k4.flash_attention_cuda(qc, kc, vc,
+                                                                 **kw))
+            want = k4.attention_bhsd_ref(qc, kc, vc, **kw)
+            reading = k4_offset_record(what, got, want, kw, qc, kc, vc)
+            if lo:
+                reading["offset0_control_rel_l2"] = offset_control(
+                    k4, what, qc, kc, vc, want, kw)
+            reading.update(k4_offset_times(k4, qc, kc, vc, kw))
+            log(f"K4 {what}: {reading['ms']:.3f} ms, plain "
+                f"{reading['plain_ms']:.3f} ms, "
+                f"scaled_dot_product_attention (mask, softcap 0) "
+                f"{reading['library_ms']:.3f} ms, bound "
+                f"{reading['bound_ms']:.3f} ms ({reading['bound_by']}; "
+                f"{reading['gflop']:.1f} GFLOP, {reading['tflops']:.1f} "
+                f"TFLOP/s, {100 * reading['bound_share']:.1f} % of the "
+                f"bound)")
+            parts.append(got)
+            rows.append(dict(reading, chunk=c, q_offset=lo,
+                             shape=[b, hq, hkv, n, hi, d]))
+            del want
+        stacked = torch.cat(parts, dim=2)
+        atol, rtol = K4_TOL["bfloat16"]
+        err = float((stacked.float() - whole.float()).abs().max())
+        outside = int((~torch.isclose(stacked.float(), whole.float(),
+                                      atol=atol, rtol=rtol)).sum())
+        rel = rel_l2(stacked, whole)
+        log(f"K4 the {K4_CHUNKS} chunks stacked against the whole-prompt "
+            f"call (q_offset 0), window {window}: max |diff| {err:.3g} "
+            f"({outside} outside atol {atol:.3g} rtol {rtol:.3g}), relative "
+            f"L2 {rel:.4g} (band {K4_REL_L2:.4g})")
+        if outside or rel > K4_REL_L2:
+            fail(f"K4 chunked prefill window {window}: the chunks stacked "
+                 f"differ from the whole call ({outside} outside, relative "
+                 f"L2 {rel})")
+        chunked[f"window {window}"] = {
+            "chunks": rows, "stacked_max_abs_err": err,
+            "stacked_rel_l2": rel}
+        del whole, parts, stacked
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # the ragged offset: no tile edge lines up
+    rb, rsq, rskv, roff = (K4_RAGGED[key] for key in
+                           ("b", "sq", "skv", "q_offset"))
+    ragged = {}
+    for dtype in (f32, bf16):
+        q, k, v = qkv(rb, rsq, rskv, dtype)
+        for window in K4_RAGGED["windows"]:
+            kw = dict(causal=True, window=window, softcap=cap,
+                      q_offset=roff)
+            what = (f"{str(dtype)[6:]} ragged offset (q {tuple(q.shape)} "
+                    f"over k/v {tuple(k.shape)}, q_offset {roff}, window "
+                    f"{window})")
+            got = launched(dtype, lambda: k4.flash_attention_cuda(q, k, v,
+                                                                  **kw))
+            want = k4.attention_bhsd_ref(q, k, v, **kw)
+            reading = k4_offset_record(what, got, want, kw, q, k, v)
+            reading["offset0_control_rel_l2"] = offset_control(
+                k4, what, q, k, v, want, kw)
+            if dtype == bf16:
+                reading.update(k4_offset_times(k4, q, k, v, kw))
+                log(f"K4 {what}: {reading['ms']:.3f} ms, plain "
+                    f"{reading['plain_ms']:.3f} ms, "
+                    f"scaled_dot_product_attention (mask, softcap 0) "
+                    f"{reading['library_ms']:.3f} ms, bound "
+                    f"{reading['bound_ms']:.4f} ms ({reading['bound_by']})")
+            ragged[f"{str(dtype)[6:]} window {window}"] = reading
+            del got, want
+        del q, k, v
+
+    # a call that leaves a query row no live key raises before any launch
+    q, k, v = qkv(1, 64, 128, bf16)
+    dead = dict(causal=True, window=32, softcap=cap, q_offset=128)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=f32, device=dev)
+    before = (k4.flash_attention_cuda.launches,
+              k4.flash_attention_bwd_cuda.launches)
+    messages = {}
+    for name, call in (
+            ("ops.flash_attention", lambda: k4.flash_attention(
+                *(t.transpose(1, 2) for t in (q, k, v)), **dead)),
+            ("flash_attention_cuda", lambda: k4.flash_attention_cuda(
+                q, k, v, **dead)),
+            ("flash_attention_bwd_cuda", lambda: k4.flash_attention_bwd_cuda(
+                q, k, v, out, out, lse, **dead))):
+        try:
+            call()
+        except ValueError as e:
+            messages[name] = str(e)
+        else:
+            fail(f"K4 {name}: a call with a dead row (q_offset 128, 64 rows "
+                 f"over 128 keys, window 32) did not raise")
+        if "no live key" not in messages[name]:
+            fail(f"K4 {name}: the dead-row refusal says {messages[name]!r}")
+    if (k4.flash_attention_cuda.launches,
+            k4.flash_attention_bwd_cuda.launches) != before:
+        fail("K4: a dead-row call launched a kernel")
+    log("K4 and K4b refuse a dead row with ValueError, no launch: "
+        + json.dumps(messages))
+    del q, k, v, out, lse
+
+    # K4b with the offset at the training shape's second half
+    (b, _, _, sq, skv, _), off, cap = K4B_OFFSET
+    k4b = {}
+    for dtype, q_scale in ((f32, 8.0), (bf16, 1.0)):
+        dt = str(dtype)[6:]
+        q, k, v = qkv(b, sq, skv, dtype, q_scale)
+        do = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=True, window=0, softcap=cap, q_offset=off)
+        out, lse = k4.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        before = collections.Counter(
+            k4.flash_attention_bwd_cuda.route_launches)
+        got = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        again = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        route = by_route(collections.Counter(
+            k4.flash_attention_bwd_cuda.route_launches) - before)
+        want = k4.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        what = (f"K4b {dt} q {tuple(q.shape)} k/v {tuple(k.shape)} q_offset "
+                f"{off} softcap {cap} q x {q_scale}")
+        if route != {f"{dt}/{DTYPE_ROUTE[dt]}": 2}:
+            fail(f"{what}: two calls launched {route}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{what}: two calls differ")
+        rels = [rel_l2(x, y) for x, y in zip(got, want)]
+        band = K4B_REL_L2[dt]
+        controls, witness = {}, {}
+        if dtype == f32:
+            for fault in ("no softcap derivative", "delta zero"):
+                bad = attention_bwd_faulty(q, k, v, out, do, lse,
+                                           fault=fault, **kw)
+                controls[fault] = max(rel_l2(x, y)
+                                      for x, y in zip(bad, want))
+                del bad
+        else:
+            for terms, into in ((1, controls), (2, witness)):
+                emulated = k4.attention_bwd_rounded_ref(
+                    q, k, v, out, do, lse, terms=terms, **kw)
+                into[f"{terms}-term P and dS in plain torch"] = max(
+                    rel_l2(x, y) for x, y in zip(emulated, want))
+                del emulated
+        controls["q_offset 0"] = max(rel_l2(x, y) for x, y in zip(
+            k4.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                        **dict(kw, q_offset=0)), want))
+        log(f"{what}: {route}; relative L2 dq {rels[0]:.3g}, dk "
+            f"{rels[1]:.3g}, dv {rels[2]:.3g} (band {band:.3g}); "
+            f"bit-identical twice; controls " + json.dumps(
+                {n: float(f"{c:.4g}") for n, c in controls.items()})
+            + ("; the route's arithmetic " + json.dumps(
+                {n: float(f"{c:.4g}") for n, c in witness.items()})
+               if witness else ""))
+        if max(rels) > band:
+            fail(f"{what}: relative L2 {rels} above {band}")
+        for name, c in controls.items():
+            if c <= band:
+                fail(f"{what}: the control '{name}' ({c}) is inside the "
+                     f"band {band}")
+        reading = {"rel_l2": rels, "controls": controls, "witness": witness,
+                   "max_abs_err": max(float((x.float() - y.float()).abs()
+                                            .max())
+                                      for x, y in zip(got, want))}
+        del got, again, want
+        if dtype == bf16:
+            # K4 at this shape (the instance with lse), then K4b in turns
+            # with SDPA's backward (explicit mask, softcap 0) and the plain
+            # version
+            k4_times = k4_offset_times(k4, q, k, v, kw, lse=True)
+            log(f"K4 with lse at {tuple(q.shape)} over {tuple(k.shape)} "
+                f"q_offset {off}: {k4_times['ms']:.3f} ms, plain "
+                f"{k4_times['plain_ms']:.3f} ms, "
+                f"scaled_dot_product_attention (mask, softcap 0) "
+                f"{k4_times['library_ms']:.3f} ms, bound "
+                f"{k4_times['bound_ms']:.4f} ms ({k4_times['bound_by']})")
+            reading["k4"] = k4_times
+            qs, ks, vs = (t.detach().clone().requires_grad_() for t in (
+                q, k.repeat_interleave(hq // hkv, dim=1),
+                v.repeat_interleave(hq // hkv, dim=1)))
+            mask = live_mask(sq, skv, q_offset=off, device=dev)
+            lib_out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                     attn_mask=mask)
+            times, rounds = in_turns({
+                "tensor_core": lambda: k4.flash_attention_bwd_cuda(
+                    q, k, v, out, do, lse, **kw),
+                "library": lambda: torch.autograd.grad(
+                    lib_out, (qs, ks, vs), do, retain_graph=True),
+                "plain": lambda: k4.attention_bwd_ref(q, k, v, out, do, lse,
+                                                      **kw),
+            }, reps=5)
+            bound_ms, bound_by, flops = k4b_bound(q, k, window=0,
+                                                  q_offset=off)
+            reading.update(
+                ms=times["tensor_core"], plain_ms=times["plain"],
+                library_ms=times["library"],
+                library="torch.autograd.grad through "
+                        "scaled_dot_product_attention(attn_mask=live pairs), "
+                        "softcap 0, backward only",
+                times_in_turns=rounds, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / times["tensor_core"],
+                gflop=flops / 1e9, shape=list(K4B_OFFSET[0]), q_offset=off)
+            log(f"{what}: timed in turns " + json.dumps(
+                {n: [round(t, 4) for t in r] for n, r in rounds.items()})
+                + f": tensor cores {times['tensor_core']:.3f} ms, plain "
+                f"{times['plain']:.3f} ms, SDPA backward (mask, softcap 0) "
+                f"{times['library']:.3f} ms; bound {bound_ms:.3f} ms "
+                f"({bound_by}; {flops / 1e9:.1f} GFLOP), "
+                f"{100 * bound_ms / times['tensor_core']:.2f} % of the bound")
+            del qs, ks, vs, lib_out, mask
+        k4b[dt] = reading
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return ({"chunked_prefill": chunked, "ragged": ragged,
+             "dead_row": messages}, k4b)
 
 
 # ------------------------------------------------------------------ training
@@ -4622,6 +5036,254 @@ def run_launchers(device=None):
                 fail(f"launch.{name}: exit {proc.returncode}, no '{want}' "
                      f"line:\n{proc.stdout}\n{proc.stderr}")
         return out
+
+
+# ------------------------------------------------------------------ walkthroughs
+
+
+@contextlib.contextmanager
+def attention_calls(record, fwd="flash_attention_cuda",
+                    bwd="flash_attention_bwd_cuda"):
+    """Keep in ``record`` the first call of each signature (kernel,
+    shapes, dtype, mask arguments) that the attention op's dispatch makes
+    to K4 (``fwd``) and K4b (``bwd``) inside the block: its inputs and its
+    outputs, cloned, so that the launches the path made can be held
+    against the plain version afterwards. The kernels run and count as
+    they would without it; later calls of a kept signature are not
+    copied."""
+    from repro_torch.kernels.attention import ops
+
+    kernels = {"K4": getattr(ops, fwd), "K4b": getattr(ops, bwd)}
+
+    def keeping(name):
+        def call(*args, **kw):
+            result = kernels[name](*args, **kw)
+            key = (name, tuple((tuple(t.shape), str(t.dtype)[6:])
+                               for t in args[:3]), tuple(sorted(kw.items())))
+            if key not in record:
+                outs = result if isinstance(result, tuple) else (result,)
+                record[key] = ([t.detach().clone() for t in args], dict(kw),
+                               [t.detach().clone() for t in outs])
+            return result
+        return call
+
+    with swapped(ops, fwd, keeping("K4")), swapped(ops, bwd, keeping("K4b")):
+        yield
+
+
+def hold_attention_calls(k4, record, what) -> list:
+    """Each call ``attention_calls`` kept, against the plain version on
+    its own inputs. K4: its output (and log-sum-exp, where it wrote one)
+    elementwise within ``K4_TOL``; in float32 the bf16-probability control
+    must break that tolerance somewhere, in bfloat16 the output must also
+    hold ``K4_REL_L2``, which that control must miss (phase 5's bands).
+    K4b: its three gradients within ``K4B_REL_L2`` for their dtype, which
+    K4b's plain version with delta zero (float32) or with bf16 P and dS
+    (bfloat16) must miss; the plain version without the softcap's
+    derivative is logged where a softcap is on. Fails on any miss; returns
+    one reading a call."""
+    import torch
+
+    def outside(got, want, atol, rtol) -> int:
+        return int((~torch.isclose(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)).sum())
+
+    readings = []
+    for (name, shapes, _), (args, kw, outs) in record.items():
+        dt = shapes[0][1]
+        atol, rtol = K4_TOL[dt]
+        call = f"{what}: {name} {dt} q/k/v {[s for s, _ in shapes]} {kw}"
+        mask = {n: x for n, x in kw.items() if n != "return_lse"}
+        if name == "K4":
+            q, k, v = args
+            want = k4.attention_bhsd_ref(q, k, v, return_lse=True, **mask)
+            want = want[:len(outs)]
+            control = attention_bf16_probs(q, k, v, **mask)
+            if dt == "float32":
+                band = None
+                controls = {"bf16 probabilities: values outside the "
+                            "tolerance": outside(control, want[0], atol,
+                                                 rtol)}
+            else:
+                band = K4_REL_L2
+                controls = {"bf16 probabilities": rel_l2(control, want[0])}
+            del control
+            rels = [rel_l2(outs[0], want[0])]
+        else:
+            want = k4.attention_bwd_ref(*args, **kw)
+            band = K4B_REL_L2[dt]
+            if dt == "float32":
+                faults = ["delta zero"] + (["no softcap derivative"]
+                                           if kw.get("softcap") else [])
+                bad = {f: attention_bwd_faulty(*args, fault=f, **kw)
+                       for f in faults}
+            else:
+                bad = {"bf16 P and dS": k4.attention_bwd_rounded_ref(
+                    *args, terms=1, **kw)}
+            controls = {f: max(rel_l2(x, y) for x, y in zip(g, want))
+                        for f, g in bad.items()}
+            del bad
+            rels = [rel_l2(g, w) for g, w in zip(outs, want)]
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(outs, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in outs)
+        off = (sum(outside(g, w, atol, rtol) for g, w in zip(outs, want))
+               if name == "K4" else 0)
+        reading = {"call": call, "max_abs_err": err, "rel_l2": rels,
+                   "band": band, "controls": controls}
+        log(f"{call}: max |diff| {err:.3g}"
+            + (f", {off} values outside atol {atol:.3g} rtol {rtol:.3g}"
+               if name == "K4" else "")
+            + f"; relative L2 {[float(f'{r:.4g}') for r in rels]}"
+            + (f" (band {band:.4g})" if band else "") + "; controls "
+            + json.dumps({n: float(f"{c:.4g}") for n, c in controls.items()}))
+        if not finite or off:
+            fail(f"{call}: {off} values outside atol {atol} rtol {rtol} of "
+                 f"the plain version or not finite (max |diff| {err})")
+        if band is None:
+            if not all(controls.values()):
+                fail(f"{call}: the bf16-probability control holds the "
+                     f"tolerance atol {atol} rtol {rtol}")
+            readings.append(reading)
+            continue
+        if max(rels) > band:
+            fail(f"{call}: relative L2 {rels} above {band}")
+        for n, c in controls.items():
+            if n != "no softcap derivative" and c <= band:
+                fail(f"{call}: the control '{n}' ({c}) is inside the band "
+                     f"{band}")
+        readings.append(reading)
+    return readings
+
+
+@contextlib.contextmanager
+def timed_steps(times):
+    """Append to ``times`` the seconds of each train step that a
+    ``Trainer`` built inside the block takes, the card synchronised
+    before and after it, so that a step's time holds its own device work
+    and nothing of the data loading or the checkpoints around it."""
+    import torch
+
+    from repro_torch.train import trainer
+
+    inner = trainer.make_train_step
+
+    def make(*args, **kw):
+        step = inner(*args, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return out
+        return timed
+
+    with swapped(trainer, "make_train_step", make):
+        yield
+
+
+def run_walkthroughs(k4, counters, device=None):
+    """Phase 16a: the user walkthroughs ``python -m
+    repro_torch.examples.<name>`` of ``WALKTHROUGHS``, each run in this
+    process (its ``main`` called with the command's arguments, so that the
+    kernel counters see its launches), its standard output logged, its
+    checkpoints in a temporary directory under ``build/``: ``quickstart``
+    must end "all four stages OK" with K4 and K4b launched, ``serve_lm``
+    serve every request on the card with K4 launched, the ``paper-100m``
+    preset train its steps with K4 and K4b launched (the median train
+    step, synchronised, the wall a step with checkpoints included, and the
+    first and last logged loss logged), and the ``smoke`` preset with a
+    crash injected at step 50 restart once and end at step 100. Each
+    run's losses must be finite. The first K4 and K4b call of each
+    signature in each run is kept and, after the run, held against the
+    plain version (``hold_attention_calls``). Returns {command:
+    numbers}."""
+    import importlib
+    import io
+    import math
+
+    extra = [] if device is None else ["--device", str(device)]
+    out = {}
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        for i, (name, argv) in enumerate(WALKTHROUGHS):
+            command = " ".join([name, *argv])
+            if name == "train_lm":
+                argv = [*argv, "--ckpt-dir", str(Path(tmp) / f"train_lm{i}")]
+            module = importlib.import_module(f"repro_torch.examples.{name}")
+            for w in counters.values():
+                w.launches = 0
+            before = {n: collections.Counter(w.route_launches)
+                      for n, w in counters.items()}
+            buf, calls, steps = io.StringIO(), {}, []
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf), swapped(
+                    tempfile, "tempdir", tmp), attention_calls(calls), \
+                    timed_steps(steps):
+                result = module.main([*argv, *extra])
+            wall = time.perf_counter() - t
+            text = buf.getvalue().strip()
+            log(f"python -m repro_torch.examples.{command} (in this process) "
+                f"in {wall:.1f}s:\n{text}")
+            record = {
+                "seconds": wall,
+                "launches": {n: w.launches for n, w in counters.items()},
+                "routes": {n: by_route(collections.Counter(w.route_launches)
+                                       - before[n])
+                           for n, w in counters.items()}}
+            launched = [n for n, c in record["launches"].items() if c]
+            want = (["flash_attention"] if name == "serve_lm"
+                    else ["flash_attention", "flash_attention_bwd"])
+            if sorted(launched) != sorted(want):
+                fail(f"walkthrough {command}: launched {record['launches']}, "
+                     f"want each of {want} at least once")
+            kept = sorted({key[0] for key in calls})
+            if kept != (["K4"] if name == "serve_lm" else ["K4", "K4b"]):
+                fail(f"walkthrough {command}: the attention op's dispatch "
+                     f"made {kept} calls, not every launch it counted")
+            record["held"] = hold_attention_calls(k4, calls, command)
+            del calls
+            if name == "quickstart":
+                losses = result.losses
+                if text.splitlines()[-1] != "all four stages OK":
+                    fail(f"walkthrough {command}: no 'all four stages OK'")
+            elif name == "serve_lm":
+                losses = None
+                if len(result) != 6 or any(len(o) != 12 for o in result):
+                    fail(f"walkthrough {command}: served "
+                         f"{[len(o) for o in result]} tokens, want 6 x 12")
+                where = "cpu" if str(device) == "cpu" else "cuda"
+                if f"tok/s on {where}" not in text:
+                    fail(f"walkthrough {command}: not served on {where}")
+            else:
+                losses = result["losses"]
+                crash = "--inject-crash-at" in argv
+                final = (int(argv[argv.index("--steps") + 1])
+                         if "--steps" in argv else module.PRESETS[
+                             argv[argv.index("--preset") + 1]]["steps"])
+                if (result["final_step"], result["restarts"]) != (
+                        final, int(crash)):
+                    fail(f"walkthrough {command}: ended at step "
+                         f"{result['final_step']} after {result['restarts']} "
+                         f"restarts, want {final} after {int(crash)}")
+                record.update(final_step=result["final_step"],
+                              restarts=result["restarts"],
+                              params=result["params"],
+                              wall_per_step_s=result["seconds"] / final)
+            if steps:
+                # the first step builds and loads the kernels
+                record.update(train_steps=len(steps),
+                              step_ms_median=1e3 * statistics.median(
+                                  steps[1:] or steps))
+            if losses is not None:
+                if not losses or not all(math.isfinite(x) for x in losses):
+                    fail(f"walkthrough {command}: losses {losses}")
+                record.update(first_loss=losses[0], last_loss=losses[-1])
+            log(f"walkthrough {command}: " + json.dumps(record))
+            out[command] = record
+    return out
 
 
 # ------------------------------------------------------------------ MoE paths
@@ -5843,6 +6505,7 @@ def run_encdec_training_path(counters, kernels, device=None, cfg=None,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir() or not SCENARIO.exists():
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
@@ -5908,6 +6571,9 @@ def main() -> int:
         k4_record["training_shape"] = check_k4_training_shape(k4, dev)
         k4b_record = check_k4b(k4, dev)
         k4b_record["ptxas"] = k4b_ptxas
+        with phase("K4 and K4b with a query offset"):
+            k4_record["offset"], k4b_record["offset"] = check_k4_offset(
+                k4, dev)
         k5_record = check_k5(k5, dev)
         k5_record["ptxas"] = k5_ptxas
         k6_record = check_k6(k6, dev)
@@ -5962,6 +6628,9 @@ def main() -> int:
     log("crash and restart outcome: " + json.dumps(crash))
     with phase("launchers"):
         run_launchers()
+    with phase("the walkthroughs"):
+        walkthroughs = run_walkthroughs(k4, train_counters)
+    log("walkthroughs outcome: " + json.dumps(walkthroughs))
     for arch in MOE_SERVING:
         with phase(f"MoE serving path {arch} with its checks"):
             outcome = moe_serving_path(arch, (k4, k5, k6), counters)
@@ -6020,6 +6689,11 @@ def main() -> int:
         serving["mesh"]["launches"]["flash_attention"])
     k4_record["launches_by_path"][mesh_train_path] = (
         mesh_training["launches"]["flash_attention"])
+    walkthrough_paths = {f"examples.{command}": record
+                         for command, record in walkthroughs.items()}
+    for path, record in walkthrough_paths.items():
+        k4_record["launches_by_path"][path] = (
+            record["launches"]["flash_attention"])
     dryrun_path = f"train {TRAIN_ARCH} step of the dry-run's cell"
     k4_record["launches_by_path"][dryrun_path] = (
         against["launches"]["flash_attention"])
@@ -6029,7 +6703,9 @@ def main() -> int:
         encdec_train_path:
             encdec_training["launches"]["flash_attention_bwd"],
         mesh_train_path: mesh_training["launches"]["flash_attention_bwd"],
-        dryrun_path: against["launches"]["flash_attention_bwd"]}
+        dryrun_path: against["launches"]["flash_attention_bwd"],
+        **{path: record["launches"]["flash_attention_bwd"]
+           for path, record in walkthrough_paths.items()}}
     train_path = f"train {TRAIN_ARCH}"
     for record, wrapper in ((k4_record, k4.flash_attention_cuda),
                             (k5_record, k5.ssd_chunked_cuda)):
@@ -6050,6 +6726,9 @@ def main() -> int:
             by_path[mesh_train_path] = (
                 mesh_training["routes"]["flash_attention"],
                 mesh_training["launches"]["flash_attention"])
+            for path, walk in walkthrough_paths.items():
+                by_path[path] = (walk["routes"]["flash_attention"],
+                                 walk["launches"]["flash_attention"])
         record["routes"] = check_routes(
             "K4" if record is k4_record else "K5", wrapper.route_launches,
             by_path)
@@ -6064,7 +6743,12 @@ def main() -> int:
              encdec_training["launches"]["flash_attention_bwd"]),
          mesh_train_path: (
              mesh_training["routes"]["flash_attention_bwd"],
-             mesh_training["launches"]["flash_attention_bwd"])})
+             mesh_training["launches"]["flash_attention_bwd"]),
+         **{path: (walk["routes"]["flash_attention_bwd"],
+                   walk["launches"]["flash_attention_bwd"])
+            for path, walk in walkthrough_paths.items()}})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all (a limit "
+        f"of 1,200 s)")
     log(smi)  # again, so that the end of a long log names the card too
     log(json.dumps({"kernels": [k1, k2, k3_record, k4_record, k4b_record,
                                 k5_record, k6_record]}))

@@ -9,7 +9,10 @@
 // - scores q . k / sqrt(d) in float32;
 // - the optional softcap c * tanh(s / c) before the masks;
 // - masks: causal (q >= k), window (q - k < w, w > 0), validity
-//   (k < skv_valid); a masked score is -2e38;
+//   (k < skv_valid); a masked score is -2e38. q is the query row's global
+//   index, q_offset + its row (a chunked prefill's chunk starts at
+//   q_offset; the reference's flash_attention(..., q_offset=)); every
+//   live-range bound and mask below reads it so;
 // - online softmax with float32 m, l and acc per query row; l is clamped at
 //   1e-37 before the division; the output takes the input's dtype;
 // - GQA: query head h reads key/value head h / (Hq / Hkv).
@@ -164,8 +167,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     Operands st, int hq, int hkv, int sq, int skv,
-                    int skv_valid, int causal, int window, float softcap,
-                    float scale, float* __restrict__ lse) {
+                    int skv_valid, int causal, int window, int q_offset,
+                    float softcap, float scale, float* __restrict__ lse) {
   using L = Layout<D>;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -183,11 +186,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* kp = k + bi * st.k.b + hk * st.k.h;
   const float* vp = v + bi * st.v.b + hk * st.v.h;
 
-  // the live kv range of this q tile (the reference's `live`, solved)
+  // the live kv range of this q tile (the reference's `live`, solved),
+  // from the tile's first global query row
+  const int qg_lo = q_offset + q_lo;
   int k_end = skv_valid < skv ? skv_valid : skv;
-  if (causal && q_lo + kBQ < k_end) k_end = q_lo + kBQ;
+  if (causal && qg_lo + kBQ < k_end) k_end = qg_lo + kBQ;
   int k_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0) k_begin = q_lo - window + 1;
+  if (window > 0 && qg_lo - window + 1 > 0) k_begin = qg_lo - window + 1;
   const int j_begin = k_begin / kBK;
   const int j_end = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
 
@@ -240,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qi = q_lo + 4 * ty + i;
+      const int qi = qg_lo + 4 * ty + i;  // global
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
@@ -325,8 +330,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Operands& st, int b, int hq, int hkv, int sq, int skv,
-           int skv_valid, int causal, int window, float softcap, float scale,
-           cudaStream_t s, int* route) {
+           int skv_valid, int causal, int window, int q_offset,
+           float softcap, float scale, cudaStream_t s, int* route) {
   using L = Layout<D>;
   auto kernel = attn_fwd_kernel<D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -337,7 +342,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kernel<<<grid, kThreads, L::kBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st, hq, hkv, sq,
-      skv, skv_valid, causal, window, softcap, scale, lse);
+      skv, skv_valid, causal, window, q_offset, softcap, scale, lse);
   err = cudaGetLastError();
   if (err == cudaSuccess) *route = kSimt;
   return static_cast<int>(err);
@@ -454,8 +459,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     Operands st, int b, int hq, int hkv, int sq, int skv,
-                    int skv_valid, int causal, int window, float softcap,
-                    float scale, float* __restrict__ lse) {
+                    int skv_valid, int causal, int window, int q_offset,
+                    float softcap, float scale, float* __restrict__ lse) {
   using T = Tile<D>;
   extern __shared__ uint4 smem[];
   const uint32_t q_smem = smem_addr(smem);
@@ -474,11 +479,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bf16* kp = k + bi * st.k.b + hk * st.k.h;
   const bf16* vp = v + bi * st.v.b + hk * st.v.h;
 
-  // the live kv range of this q tile (the reference's `live`, solved)
+  // the live kv range of this q tile (the reference's `live`, solved),
+  // from the tile's first global query row
+  const int qg_lo = q_offset + q_lo;
   int k_end = skv_valid;
-  if (causal && q_lo + kBQ < k_end) k_end = q_lo + kBQ;
+  if (causal && qg_lo + kBQ < k_end) k_end = qg_lo + kBQ;
   const int k_begin =
-      window > 0 && q_lo - window + 1 > 0 ? q_lo - window + 1 : 0;
+      window > 0 && qg_lo - window + 1 > 0 ? qg_lo - window + 1 : 0;
   const int j_begin = k_begin / kBK;
   const int j_end = (k_end + kBK - 1) / kBK;
 
@@ -501,8 +508,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wq_lo = q_lo + 16 * warp;  // the warp's first query row
-  const int row0 = wq_lo + lane / 4;   // this lane's rows: row0, row0 + 8
+  // the warp's first query row and this lane's rows (row_g, row_g + 8),
+  // global indices (the masks read them; the output rows are row_g -
+  // q_offset: at d 256 one more register a thread through the loop spills)
+  const int wq_g = q_offset + q_lo + 16 * warp;
+  const int row_g = wq_g + lane / 4;
   const int col0 = 2 * (lane % 4);     // and its first column in an n-tile
   // ldmatrix row addresses. Q (A, x4): rows lane % 16, columns 8 (lane /
   // 16). K (B of two key n-tiles, x4): keys lane % 8 + 8 (lane / 16), d
@@ -557,8 +567,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // scale, softcap, masks (only where the keys straddle an edge for
       // this warp's rows), then the online softmax of the reference
       const bool edge = k_lo + kSub > skv_valid ||
-                        (causal && k_lo + kSub - 1 > wq_lo) ||
-                        (window > 0 && wq_lo + 15 - k_lo >= window);
+                        (causal && k_lo + kSub - 1 > wq_g) ||
+                        (window > 0 && wq_g + 15 - k_lo >= window);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int n = 0; n < kSub / 8; ++n)
@@ -567,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float x = s[n][e] * scale;
           if (softcap > 0.f) x = softcap * tanhf(x * inv_cap);
           if (edge) {
-            const int qi = row0 + 8 * (e / 2);
+            const int qi = row_g + 8 * (e / 2);
             const int ki = k_lo + 8 * n + col0 + e % 2;
             bool ok = ki < skv_valid;
             if (causal) ok = ok && qi >= ki;
@@ -632,7 +642,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     sum += __shfl_xor_sync(kFull, sum, 1);
     sum += __shfl_xor_sync(kFull, sum, 2);
     const float inv_l = 1.f / fmaxf(sum, 1e-37f);
-    const int r = row0 + 8 * i;
+    const int r = row_g - q_offset + 8 * i;
     if (r >= sq) continue;
     if constexpr (kLse) {
       if (lane % 4 == 0) {
@@ -653,8 +663,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Operands& st, int b, int hq, int hkv, int sq, int skv,
-           int skv_valid, int causal, int window, float softcap, float scale,
-           cudaStream_t s, int* route) {
+           int skv_valid, int causal, int window, int q_offset,
+           float softcap, float scale, cudaStream_t s, int* route) {
   auto kernel = attn_fwd_kernel<D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -666,7 +676,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<D>::kBytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), st, b, hq, hkv, sq,
-      skv, skv_valid, causal, window, softcap, scale, lse);
+      skv, skv_valid, causal, window, q_offset, softcap, scale, lse);
   err = cudaGetLastError();
   if (err == cudaSuccess) *route = kTensorCore;
   return static_cast<int>(err);
@@ -680,25 +690,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Operands& st, int b, int hq, int hkv, int sq,
-           int skv, int skv_valid, int causal, int window, float softcap,
-           float scale, cudaStream_t s, int* route) {
+           int skv, int skv_valid, int causal, int window, int q_offset,
+           float softcap, float scale, cudaStream_t s, int* route) {
   auto run = dtype == kBF16
                  ? (lse ? tc::launch<D, true> : tc::launch<D, false>)
                  : (lse ? simt::launch<D, true> : simt::launch<D, false>);
   return run(q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal,
-             window, softcap, scale, s, route);
+             window, q_offset, softcap, scale, s, route);
 }
 
 int launch_d(int d, int dtype, const void* q, const void* k, const void* v,
              void* o, float* lse, const Operands& st, int b, int hq, int hkv,
              int sq, int skv, int skv_valid, int causal, int window,
-             float softcap, float scale, cudaStream_t s, int* route) {
+             int q_offset, float softcap, float scale, cudaStream_t s,
+             int* route) {
   switch (d) {
-    case 16: return launch<16>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 32: return launch<32>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 64: return launch<64>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
-    case 256: return launch<256>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, softcap, scale, s, route);
+    case 16: return launch<16>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, q_offset, softcap, scale, s, route);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, q_offset, softcap, scale, s, route);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, q_offset, softcap, scale, s, route);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, q_offset, softcap, scale, s, route);
+    case 256: return launch<256>(dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv, skv_valid, causal, window, q_offset, softcap, scale, s, route);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -776,8 +787,14 @@ int launch_d(int d, int dtype, const void* q, const void* k, const void* v,
 //   and keys; expf and tanhf stay the accurate library functions (no
 //   --use_fast_math), s / softcap taken as s * (1 / softcap) as in the
 //   forward. A query row with no live key gets P = 0 here and in the
-//   SIMT kernels, where the reference's exp(-2e38 - lse) reads 1 (no path
-//   has such a row: causal self-attention sees its own key).
+//   SIMT kernels, where the reference's exp(-2e38 - lse) reads 1; the
+//   wrapper refuses a call that would have one (kernel.py
+//   check_live_rows), so no launch sees it.
+// - A chunk's query rows are global rows q_offset + r (the reference's
+//   _flash_core_bwd takes q_offset too): the masks read them so, a dQ
+//   tile's live kv range is the forward's, and a dK/dV tile's query range
+//   shifts the other way, local rows from max(0, k_lo - q_offset) (causal)
+//   to the last key's window end less q_offset, empty when that is <= 0.
 // What still holds it back: the two kernels recompute S and dP (4 d of
 // the 20 d executed); every warp reads its operands through ldmatrix from
 // shared memory, one CTA an SM, and mma.sync issues 16 x 8 x 16 at a
@@ -890,7 +907,8 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sdO,
                                        const float* slse, const float* sdelta,
                                        float* sP, float* sdS, int q_lo,
                                        int k_lo, int sq, int skv, int causal,
-                                       int window, float softcap) {
+                                       int window, int q_offset,
+                                       float softcap) {
   using C = Cfg<D>;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[C::kS][C::kS], dp[C::kS][C::kS];
@@ -928,9 +946,10 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sdO,
         x = softcap * t;
         cd = 1.f - t * t;
       }
+      const int qg = q_offset + qi;  // global
       bool ok = qi < sq && ki < skv;
-      if (causal) ok = ok && qi >= ki;
-      if (window > 0) ok = ok && qi - ki < window;
+      if (causal) ok = ok && qg >= ki;
+      if (window > 0) ok = ok && qg - ki < window;
       const float p = ok ? expf(x - slse[r]) : 0.f;
       const float ds = ok ? p * (dp[i][j] - sdelta[r]) * cd : 0.f;
       if (kWriteP) sP[r * C::kPRow + c] = p;
@@ -973,7 +992,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, Operands st, int hq, int hkv, int sq,
-                int skv, int causal, int window, float softcap, float scale) {
+                int skv, int causal, int window, int q_offset, float softcap,
+                float scale) {
   using C = Cfg<D>;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -993,12 +1013,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   load_tile<T, D>(sV, v + bi * st.v.b + hk * st.v.h + k_lo * st.v.s, st.v.s,
                   skv - k_lo, 1.f);
 
-  // the query tiles that see a key of this tile
-  const int q_begin = causal ? k_lo : 0;
+  // the query tiles that see a key of this tile (local rows: global less
+  // q_offset)
+  const int q_begin = causal && k_lo > q_offset ? k_lo - q_offset : 0;
   int q_end = sq;
   if (window > 0) {
-    const long long last = static_cast<long long>(k_lo) + C::kT - 1 + window;
-    if (last < q_end) q_end = static_cast<int>(last);
+    const long long last =
+        static_cast<long long>(k_lo) + C::kT - 1 + window - q_offset;
+    if (last < q_end) q_end = static_cast<int>(last > 0 ? last : 0);
   }
   const int i_begin = q_begin / C::kT;
   const int i_end = q_begin < q_end ? (q_end + C::kT - 1) / C::kT : i_begin;
@@ -1025,7 +1047,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_rows<D>(slse, sdelta, lse + row0, delta + row0, q_lo, sq);
       __syncthreads();
       scores<D, true>(sQ, sdO, sK, sV, slse, sdelta, sP, sdS, q_lo, k_lo, sq,
-                      skv, causal, window, softcap);
+                      skv, causal, window, q_offset, softcap);
       __syncthreads();
 #pragma unroll 2
       for (int r = 0; r < C::kT; ++r) {
@@ -1074,7 +1096,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, Operands st, int hq, int hkv, int sq,
-              int skv, int causal, int window, float softcap, float scale) {
+              int skv, int causal, int window, int q_offset, float softcap,
+              float scale) {
   using C = Cfg<D>;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -1096,9 +1119,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   load_rows<D>(slse, sdelta, lse + row0, delta + row0, q_lo, sq);
 
   // the live kv range of this q tile (as the forward)
+  const int qg_lo = q_offset + q_lo;
   int k_end = skv;
-  if (causal && q_lo + C::kT < k_end) k_end = q_lo + C::kT;
-  const int k_begin = window > 0 && q_lo - window + 1 > 0 ? q_lo - window + 1 : 0;
+  if (causal && qg_lo + C::kT < k_end) k_end = qg_lo + C::kT;
+  const int k_begin =
+      window > 0 && qg_lo - window + 1 > 0 ? qg_lo - window + 1 : 0;
   const int j_begin = k_begin / C::kT;
   const int j_end = (k_end + C::kT - 1) / C::kT;
 
@@ -1118,7 +1143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     skv - k_lo, 1.f);
     __syncthreads();
     scores<D, false>(sQ, sdO, sK, sV, slse, sdelta, nullptr, sdS, q_lo, k_lo,
-                     sq, skv, causal, window, softcap);
+                     sq, skv, causal, window, q_offset, softcap);
     __syncthreads();
 #pragma unroll 2
     for (int c2 = 0; c2 < C::kT; ++c2) {
@@ -1155,8 +1180,8 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, const Operands& st, int b, int hq, int hkv,
-           int sq, int skv, int causal, int window, float softcap,
-           float scale, cudaStream_t s) {
+           int sq, int skv, int causal, int window, int q_offset,
+           float softcap, float scale, cudaStream_t s) {
   using C = Cfg<D>;
   auto dkdv = dkdv_kernel<T, D>;
   auto dqk = dq_kernel<T, D>;
@@ -1182,12 +1207,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv<<<dim3((skv + C::kT - 1) / C::kT, hkv, b), kThreads, C::kBytes, s>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      st, hq, hkv, sq, skv, causal, window, softcap, scale);
+      st, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dqk<<<dim3((sq + C::kT - 1) / C::kT, hq, b), kThreads, C::kBytes, s>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), st, hq, hkv, sq, skv,
-      causal, window, softcap, scale);
+      causal, window, q_offset, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1195,14 +1220,14 @@ template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* delta,
              void* dq, void* dk, void* dv, const Operands& st, int b, int hq,
-             int hkv, int sq, int skv, int causal, int window, float softcap,
-             float scale, cudaStream_t s) {
+             int hkv, int sq, int skv, int causal, int window, int q_offset,
+             float softcap, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1299,11 +1324,13 @@ __device__ __forceinline__ void probs(float& s, float& dp, bool ok,
   dp = ok ? p * (dp - row_delta) * cd : 0.f;
 }
 
+// qi is a local query row (qi < sq), q_offset + qi its global index
 __device__ __forceinline__ bool live(int qi, int ki, int sq, int skv,
-                                     int causal, int window) {
+                                     int causal, int window, int q_offset) {
   bool ok = qi < sq && ki < skv;
-  if (causal) ok = ok && qi >= ki;
-  if (window > 0) ok = ok && qi - ki < window;
+  const int qg = q_offset + qi;
+  if (causal) ok = ok && qg >= ki;
+  if (window > 0) ok = ok && qg - ki < window;
   return ok;
 }
 
@@ -1319,8 +1346,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, Operands st, int b, int hq, int hkv,
-                int sq, int skv, int causal, int window, float softcap,
-                float scale) {
+                int sq, int skv, int causal, int window, int q_offset,
+                float softcap, float scale) {
   using L = Layout<D>;
   constexpr int kBK = L::kBK, kQW = L::kQW, kDW = L::kDW;
   constexpr int kN = kDW / 8;  // n-tiles of the warp's dK and dV
@@ -1339,12 +1366,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_lo = idx / b * kBK;
   const int group = hq / hkv;
 
-  // the query tiles that see a key of this tile, for each head of the group
-  const int q_begin = causal ? k_lo : 0;
+  // the query tiles that see a key of this tile, for each head of the
+  // group (local rows: global less q_offset)
+  const int q_begin = causal && k_lo > q_offset ? k_lo - q_offset : 0;
   int q_end = sq;
   if (window > 0) {
-    const long long last = static_cast<long long>(k_lo) + kBK - 1 + window;
-    if (last < q_end) q_end = static_cast<int>(last);
+    const long long last =
+        static_cast<long long>(k_lo) + kBK - 1 + window - q_offset;
+    if (last < q_end) q_end = static_cast<int>(last > 0 ? last : 0);
   }
   const int it_begin = q_begin / kBQ;
   const int n_it = q_begin < q_end ? (q_end + kBQ - 1) / kBQ - it_begin : 0;
@@ -1445,16 +1474,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     const int qw_lo = q_lo + kQW * ds;
+    const int qw_g = q_offset + qw_lo;  // global, for the masks
     const bool edge = kw_lo + 16 > skv || qw_lo + kQW > sq ||
-                      (causal && kw_lo + 15 > qw_lo) ||
-                      (window > 0 && qw_lo + kQW - 1 - kw_lo >= window);
+                      (causal && kw_lo + 15 > qw_g) ||
+                      (window > 0 && qw_g + kQW - 1 - kw_lo >= window);
 #pragma unroll
     for (int n = 0; n < kQW / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qc = kQW * ds + 8 * n + col0 + e % 2;  // row in the tile
         const bool ok = !edge || live(q_lo + qc, key0 + 8 * (e / 2), sq, skv,
-                                      causal, window);
+                                      causal, window, q_offset);
         probs(s[n][e], dp[n][e], ok, rows[qc], rows[kBQ + qc], scale,
               softcap, inv_cap);
       }
@@ -1553,8 +1583,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, Operands st, int b, int hq, int hkv,
-              int sq, int skv, int causal, int window, float softcap,
-              float scale) {
+              int sq, int skv, int causal, int window, int q_offset,
+              float softcap, float scale) {
   using L = Layout<D>;
   constexpr int kSub = L::kSub;
   extern __shared__ uint4 smem[];
@@ -1571,10 +1601,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = h / (hq / hkv);
 
   // the live kv range of this q tile (as the forward)
+  const int qg_lo = q_offset + q_lo;
   int k_end = skv;
-  if (causal && q_lo + kQT < k_end) k_end = q_lo + kQT;
+  if (causal && qg_lo + kQT < k_end) k_end = qg_lo + kQT;
   const int k_begin =
-      window > 0 && q_lo - window + 1 > 0 ? q_lo - window + 1 : 0;
+      window > 0 && qg_lo - window + 1 > 0 ? qg_lo - window + 1 : 0;
   const int j_begin = k_begin / kKT;
   const int n_tiles = max(0, (k_end + kKT - 1) / kKT - j_begin);
 
@@ -1665,16 +1696,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           mma(dp[2 * np + 1], a, bv[2], bv[3]);
         }
       }
+      const int wq_g = q_offset + wq_lo;  // global, for the masks
       const bool edge = k_lo + kSub > skv || wq_lo + 16 > sq ||
-                        (causal && k_lo + kSub - 1 > wq_lo) ||
-                        (window > 0 && wq_lo + 15 - k_lo >= window);
+                        (causal && k_lo + kSub - 1 > wq_g) ||
+                        (window > 0 && wq_g + 15 - k_lo >= window);
 #pragma unroll
       for (int n = 0; n < kSub / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool ok = !edge || live(row0 + 8 * (e / 2),
                                         k_lo + 8 * n + col0 + e % 2, sq, skv,
-                                        causal, window);
+                                        causal, window, q_offset);
           probs(s[n][e], dp[n][e], ok, row_lse[e / 2], row_delta[e / 2],
                 scale, softcap, inv_cap);
         }
@@ -1723,8 +1755,8 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, const Operands& st, int b, int hq, int hkv,
-           int sq, int skv, int causal, int window, float softcap,
-           float scale, cudaStream_t s) {
+           int sq, int skv, int causal, int window, int q_offset,
+           float softcap, float scale, cudaStream_t s) {
   using L = Layout<D>;
   auto dkdv = dkdv_kernel<D>;
   auto dqk = dq_kernel<D>;
@@ -1759,26 +1791,26 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   dkdv<<<static_cast<unsigned>(kv_blocks), kThreads, L::kDkdvBytes, s>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), st, b, hq, hkv, sq, skv, causal, window,
-      softcap, scale);
+      q_offset, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dqk<<<static_cast<unsigned>(q_blocks), kThreads, L::kDqBytes, s>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), st, b, hq, hkv,
-      sq, skv, causal, window, softcap, scale);
+      sq, skv, causal, window, q_offset, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_d(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* delta,
              void* dq, void* dk, void* dv, const Operands& st, int b, int hq,
-             int hkv, int sq, int skv, int causal, int window, float softcap,
-             float scale, cudaStream_t s) {
+             int hkv, int sq, int skv, int causal, int window, int q_offset,
+             float softcap, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
-    case 256: return launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, softcap, scale, s);
+    case 16: return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
+    case 256: return launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, sq, skv, causal, window, q_offset, softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1804,9 +1836,10 @@ int entry(bool replaced, const void* q, const void* k, const void* v,
           const void* o, const void* dout, const float* lse, float* delta,
           void* dq, void* dk, void* dv, int dtype, int b, int hq, int hkv,
           int sq, int skv, int d, const long long* t, int causal, int window,
-          float softcap, float scale, cudaStream_t s, int* route) {
+          int q_offset, float softcap, float scale, cudaStream_t s,
+          int* route) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
-      window < 0 || softcap < 0.f || hq > 65535 || hkv > 65535 ||
+      window < 0 || q_offset < 0 || softcap < 0.f || hq > 65535 || hkv > 65535 ||
       b > 65535 || t == nullptr || lse == nullptr || delta == nullptr ||
       route == nullptr || (dtype != kF32 && dtype != kBF16) ||
       (replaced && dtype != kBF16)) {
@@ -1820,14 +1853,15 @@ int entry(bool replaced, const void* q, const void* k, const void* v,
   const int err =
       tensor_cores
           ? tc::launch_d(d, q, k, v, o, dout, lse, delta, dq, dk, dv, st, b,
-                         hq, hkv, sq, skv, causal, window, softcap, scale, s)
+                         hq, hkv, sq, skv, causal, window, q_offset, softcap,
+                         scale, s)
       : dtype == kBF16
           ? launch_d<__nv_bfloat16>(d, q, k, v, o, dout, lse, delta, dq, dk,
                                     dv, st, b, hq, hkv, sq, skv, causal,
-                                    window, softcap, scale, s)
+                                    window, q_offset, softcap, scale, s)
           : launch_d<float>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, st,
-                            b, hq, hkv, sq, skv, causal, window, softcap,
-                            scale, s);
+                            b, hq, hkv, sq, skv, causal, window, q_offset,
+                            softcap, scale, s);
   if (err == 0) *route = tensor_cores ? kTensorCore : kSimt;
   return err;
 }
@@ -1847,7 +1881,8 @@ const char* attn_error_string(int err) {
 // [3..5] k, [6..8] v, [9..11] o), the last dimension contiguous, every row
 // 16-byte aligned, all of `dtype` (0 float32, 1 bfloat16). d in {16, 32,
 // 64, 128, 256}; hq a multiple of hkv; 0 <= skv_valid <= skv; window 0 =
-// unbounded; softcap 0 = off. lse, if not null, receives each query row's
+// unbounded; q_offset >= 0 the global index of query row 0; softcap 0 =
+// off. lse, if not null, receives each query row's
 // log-sum-exp, (b, hq, sq) float32 contiguous, from an instance of its own
 // (training passes it; serving does not, and runs the kernel it ran before
 // lse existed). bfloat16 launches the tensor-core kernel and float32 the
@@ -1856,10 +1891,11 @@ const char* attn_error_string(int err) {
 int attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
                     float* lse, int dtype, int b, int hq, int hkv, int sq,
                     int skv, int d, const long long* strides, int skv_valid,
-                    int causal, int window, float softcap, float scale,
-                    void* stream, int* route) {
+                    int causal, int window, int q_offset, float softcap,
+                    float scale, void* stream, int* route) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
-      skv_valid < 0 || skv_valid > skv || window < 0 || softcap < 0.f ||
+      skv_valid < 0 || skv_valid > skv || window < 0 || q_offset < 0 ||
+      softcap < 0.f ||
       hq > 65535 || b > 65535 || strides == nullptr || route == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1871,7 +1907,7 @@ int attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_d(d, dtype, q, k, v, o, lse, st, b, hq, hkv, sq, skv,
-                  skv_valid, causal, window, softcap, scale,
+                  skv_valid, causal, window, q_offset, softcap, scale,
                   static_cast<cudaStream_t>(stream), route);
 }
 
@@ -1880,7 +1916,8 @@ int attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
 // (like q), dk and dv (like k); delta is scratch of (b, hq, sq) float32.
 // strides: eight triples (batch, head, sequence) for q, k, v, o, dout, dq,
 // dk, dv in that order, each tensor's last dimension contiguous and its
-// rows 16-byte aligned. Three launches on the stream: delta, dk/dv, dq.
+// rows 16-byte aligned; q_offset as in attn_fwd_launch. Three launches on
+// the stream: delta, dk/dv, dq.
 // bfloat16 launches the tensor-core kernels and float32 the SIMT ones; the
 // launch that succeeded writes which into *route (0 SIMT, 1 tensor cores).
 int attn_bwd_launch(const void* q, const void* k, const void* v,
@@ -1888,10 +1925,11 @@ int attn_bwd_launch(const void* q, const void* k, const void* v,
                     float* delta, void* dq, void* dk, void* dv, int dtype,
                     int b, int hq, int hkv, int sq, int skv, int d,
                     const long long* strides, int causal, int window,
-                    float softcap, float scale, void* stream, int* route) {
+                    int q_offset, float softcap, float scale, void* stream,
+                    int* route) {
   return bwd::entry(false, q, k, v, o, dout, lse, delta, dq, dk, dv, dtype,
-                    b, hq, hkv, sq, skv, d, strides, causal, window, softcap,
-                    scale, static_cast<cudaStream_t>(stream), route);
+                    b, hq, hkv, sq, skv, d, strides, causal, window, q_offset,
+                    softcap, scale, static_cast<cudaStream_t>(stream), route);
 }
 
 // The dynamic shared memory, in bytes, that attn_bwd_launch's tensor-core

@@ -41,6 +41,12 @@ and dS split into two bf16 terms for the three gradient products, as
 every operand through its strides, as the forward does; its ``launches``
 counts calls, one a call, and ``route_launches`` counts them by ``(dtype,
 route)`` as the C entry reports the route it launched.
+
+Both take ``q_offset``, the global index of query row 0 (a chunked
+prefill's chunk over its prefix of keys): every live-range bound and mask
+of both routes reads query row ``i`` as ``q_offset + i``. Both refuse,
+before any launch, a call that would leave a query row no live key
+(:func:`check_live_rows`).
 """
 
 from __future__ import annotations
@@ -78,12 +84,12 @@ def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE, NVCC_FLAGS)
     lib.attn_fwd_launch.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I,
-        _I, _F, _F, _P, ctypes.POINTER(_I),
+        _I, _I, _F, _F, _P, ctypes.POINTER(_I),
     ]
     lib.attn_fwd_launch.restype = _I
     lib.attn_bwd_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _I, _BWD_STRIDES, _I, _I, _F, _F, _P, ctypes.POINTER(_I),
+        _I, _BWD_STRIDES, _I, _I, _I, _F, _F, _P, ctypes.POINTER(_I),
     ]
     lib.attn_bwd_launch.restype = _I
     lib.attn_bwd_shared_memory.argtypes = [_I, ctypes.POINTER(_I),
@@ -120,6 +126,26 @@ def strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def check_live_rows(sq: int, skv: int, window: int, q_offset: int) -> None:
+    """Raise ``ValueError`` unless every one of ``sq`` query rows, global
+    rows ``q_offset`` on, keeps a live key among ``skv``: ``q_offset`` is
+    no index when negative, and with ``window > 0`` the last row's window
+    ends before the keys do once ``q_offset + sq - skv >= window`` (causal
+    or not: the causal mask only takes keys away). Python ints only, no
+    device sync. The reference has no single answer for such a row: its
+    output there depends on its kv block size (its scan gives every padded
+    key ``exp(0)``, its Pallas kernel averages the masked keys of a live
+    tile), so the port refuses the call, on every device."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} must be >= 0 (the global "
+                         f"index of query row 0)")
+    if window > 0 and sq > 0 and q_offset + sq - skv >= window:
+        raise ValueError(
+            f"q_offset {q_offset}, {sq} query rows over {skv} keys, window "
+            f"{window}: query rows from {skv - 1 + window} on have no live "
+            f"key")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -151,13 +177,16 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
     skv_valid: int | None = None,
     return_lse: bool = False,
 ):
     """``softmax(q kᵀ / sqrt(d)) v`` on the card, ``(B, Hq, Sq, D)`` in
     q's dtype and layout, and with ``return_lse`` its ``(B, Hq, Sq)``
     float32 log-sum-exp beside it; the same contract as
-    :func:`~repro_torch.kernels.attention.ref.attention_bhsd_ref`."""
+    :func:`~repro_torch.kernels.attention.ref.attention_bhsd_ref`, query
+    row ``i`` masked as global row ``q_offset + i``. Refuses a call that
+    leaves a query row no live key (:func:`check_live_rows`)."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -166,6 +195,7 @@ def flash_attention_cuda(
         raise ValueError(f"skv_valid {skv_valid} outside [0, {skv}]")
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
+    check_live_rows(sq, skv_valid, window, q_offset)
     require_hopper(q.device)
     out = torch.empty_like(q)  # q's layout where q is dense
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -182,7 +212,8 @@ def flash_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             DTYPES[q.dtype], b, hq, hkv, sq, skv, d, layout, skv_valid,
-            int(causal), int(window), float(softcap), 1.0 / math.sqrt(d),
+            int(causal), int(window), int(q_offset), float(softcap),
+            1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
             ctypes.byref(route),
         )
@@ -206,7 +237,8 @@ def _usable(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _backward(entry, q, k, v, out, dout, lse, causal, window, softcap):
+def _backward(entry, q, k, v, out, dout, lse, causal, window, softcap,
+              q_offset):
     """``(dq, dk, dv)`` and the route that the C entry ``entry`` reports
     it launched."""
     _check(q, k, v)
@@ -227,6 +259,7 @@ def _backward(entry, q, k, v, out, dout, lse, causal, window, softcap):
     if q.numel() == 0 or skv == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
+    check_live_rows(sq, skv, window, q_offset)
     require_hopper(q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -239,8 +272,8 @@ def _backward(entry, q, k, v, out, dout, lse, causal, window, softcap):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], b, hq, hkv, sq,
-            skv, d, layout, int(causal), int(window), float(softcap),
-            1.0 / math.sqrt(d),
+            skv, d, layout, int(causal), int(window), int(q_offset),
+            float(softcap), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
             ctypes.byref(route),
         )
@@ -262,6 +295,7 @@ def flash_attention_bwd_cuda(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` on the card, each in the layout and dtype of q, k
     and v; the contract of
@@ -269,7 +303,7 @@ def flash_attention_bwd_cuda(
     and out are read where they lie (they come from the forward); dout is
     copied once if its layout is not one the kernels read."""
     grads, route = _backward("attn_bwd_launch", q, k, v, out, dout, lse,
-                             causal, window, softcap)
+                             causal, window, softcap, q_offset)
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.route_launches[
         (str(q.dtype).removeprefix("torch."), route)] += 1

@@ -29,6 +29,16 @@ pairs the causal and window masks let through), a byte count and a
 DTensor sharding rule: batch or heads may shard, the sequence and head
 dims replicate (:mod:`repro_torch.kernels.costs`). So a DTensor call runs
 the kernel on each rank's shard, and a fake-tensor call runs nothing.
+
+``q_offset`` is the global index of query row 0, as the reference's
+``flash_attention(..., q_offset=)`` has it for a chunked prefill: every
+mask reads query row ``i`` as ``q_offset + i``, forward and backward. A
+call that would leave a query row no live key (``window > 0`` and
+``q_offset + Sq - Skv >= window``, or a negative offset) raises
+``ValueError`` before any launch, on the CPU as on the card: the CUDA
+wrappers, public entry points of their own, refuse it themselves, and the
+CPU branch calls the same :func:`~.kernel.check_live_rows`, which states
+the contract and why.
 """
 
 from __future__ import annotations
@@ -37,28 +47,33 @@ import numpy as np
 import torch
 
 from .. import costs
-from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .kernel import (
+    check_live_rows, flash_attention_bwd_cuda, flash_attention_cuda,
+)
 from .ref import attention_bhsd_ref, attention_bwd_ref
 
 Tensor = torch.Tensor
 
 
-def live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+def live_pairs(sq: int, skv: int, causal: bool, window: int,
+               q_offset: int = 0) -> int:
     """The (query, key) pairs that K4's masks let through, every key valid
-    (query rows counted from 0, as the kernel counts them)."""
-    i = np.arange(sq, dtype=np.int64)
+    (query row ``r`` the global row ``q_offset + r``)."""
+    i = q_offset + np.arange(sq, dtype=np.int64)
     hi = np.minimum(i, skv - 1) if causal else np.full_like(i, skv - 1)
     lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _k4(q, k, v, causal, window, softcap, return_lse):
-    kw = dict(causal=causal, window=window, softcap=softcap)
+def _k4(q, k, v, causal, window, softcap, q_offset, return_lse):
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
     if return_lse:
         kw["return_lse"] = True
     if q.device.type == "cuda":
         out = flash_attention_cuda(q, k, v, **kw)
     elif q.device.type == "cpu":
+        check_live_rows(q.shape[2], k.shape[2], window, q_offset)
         out = attention_bhsd_ref(*(t.contiguous() for t in (q, k, v)), **kw)
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -78,30 +93,32 @@ def _like(t: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                       window: int, softcap: float) -> Tensor:
+                       window: int, softcap: float, q_offset: int) -> Tensor:
     """K4 in ``(B, H, S, D)``: the output alone (serving's instance)."""
-    return _k4(q, k, v, causal, window, softcap, False)
+    return _k4(q, k, v, causal, window, softcap, q_offset, False)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
 def flash_attention_lse_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                           window: int, softcap: float
+                           window: int, softcap: float, q_offset: int
                            ) -> tuple[Tensor, Tensor]:
     """K4 in ``(B, H, S, D)`` with each query row's float32 log-sum-exp
     (training's instance)."""
-    return _k4(q, k, v, causal, window, softcap, True)
+    return _k4(q, k, v, causal, window, softcap, q_offset, True)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def flash_attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                            dout: Tensor, lse: Tensor, causal: bool,
-                           window: int, softcap: float
+                           window: int, softcap: float, q_offset: int
                            ) -> tuple[Tensor, Tensor, Tensor]:
     """K4b in ``(B, H, S, D)``: ``(dq, dk, dv)``."""
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
     if q.device.type == "cuda":
         grads = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
     elif q.device.type == "cpu":
+        check_live_rows(q.shape[2], k.shape[2], window, q_offset)
         grads = attention_bwd_ref(q, k, v, out, dout, lse, **kw)
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -109,46 +126,48 @@ def flash_attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal, window, softcap):
+def _(q, k, v, causal, window, softcap, q_offset):
     return torch.empty_like(q)
 
 
 @flash_attention_lse_op.register_fake
-def _(q, k, v, causal, window, softcap):
+def _(q, k, v, causal, window, softcap, q_offset):
     return (torch.empty_like(q),
             q.new_empty(q.shape[:3], dtype=torch.float32))
 
 
 @flash_attention_bwd_op.register_fake
-def _(q, k, v, out, dout, lse, causal, window, softcap):
+def _(q, k, v, out, dout, lse, causal, window, softcap, q_offset):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
-def _pairs(q_shape, k_shape, causal, window) -> int:
+def _pairs(q_shape, k_shape, causal, window, q_offset) -> int:
     b, hq, sq, _ = q_shape
-    return b * hq * live_pairs(sq, k_shape[2], causal, window)
+    return b * hq * live_pairs(sq, k_shape[2], causal, window, q_offset)
 
 
-def _fwd_flops(q_shape, k_shape, v_shape, causal, window, softcap, *a,
-               **kw) -> int:
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, softcap, q_offset,
+               *a, **kw) -> int:
     """``4 d`` a live pair: ``2 d`` for ``Q Kᵀ`` and ``2 d`` for ``P V``."""
-    return 4 * q_shape[-1] * _pairs(q_shape, k_shape, causal, window)
+    return 4 * q_shape[-1] * _pairs(q_shape, k_shape, causal, window,
+                                    q_offset)
 
 
 def _bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, lse_shape,
-               causal, window, softcap, *a, **kw) -> int:
+               causal, window, softcap, q_offset, *a, **kw) -> int:
     """``10 d`` a live pair: ``Q Kᵀ`` recomputed, ``dO Vᵀ``, and the three
     gradient products ``Pᵀ dO``, ``dS K`` and ``dSᵀ Q``, ``2 d`` each."""
-    return 10 * q_shape[-1] * _pairs(q_shape, k_shape, causal, window)
+    return 10 * q_shape[-1] * _pairs(q_shape, k_shape, causal, window,
+                                     q_offset)
 
 
 def _rule(n_in: int, n_out: int):
     """Replicated, or every tensor sharded alike on batch (dim 0) or heads
     (dim 1); the sequence and head dims stay whole, as a kernel needs
-    them (the three scalar arguments get no placement)."""
+    them (the four scalar arguments get no placement)."""
     def rule(*args):
         return [(costs.placements(*[d] * n_out),
-                 costs.placements(*[d] * n_in, None, None, None))
+                 costs.placements(*[d] * n_in, None, None, None, None))
                 for d in ("R", 0, 1)]
     return rule
 
@@ -167,22 +186,24 @@ def _forward(q, k, v, kw, return_lse=False):
     op = (torch.ops.repro_torch.flash_attention_lse if return_lse
           else torch.ops.repro_torch.flash_attention)
     return op(q, k, v, kw.get("causal", True), kw.get("window", 0),
-              float(kw.get("softcap", 0.0)))
+              float(kw.get("softcap", 0.0)), int(kw.get("q_offset", 0)))
 
 
 def attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0,
-                  softcap=0.0):
+                  softcap=0.0, q_offset=0):
     """The backward in ``(B, H, S, D)`` through K4b's op."""
     return torch.ops.repro_torch.flash_attention_bwd(
-        q, k, v, out, dout, lse, causal, window, float(softcap))
+        q, k, v, out, dout, lse, causal, window, float(softcap),
+        int(q_offset))
 
 
 class FlashAttention(torch.autograd.Function):
     """K4 forward, K4b backward, on ``(B, H, S, D)`` views."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        kw = dict(causal=causal, window=window, softcap=softcap)
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
         out, lse = _forward(q, k, v, kw, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -192,7 +213,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -203,11 +224,12 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out = FlashAttention.apply(q, k, v, causal, window, softcap)
+        out = FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
     else:
         out = _forward(q, k, v, dict(causal=causal, window=window,
-                                     softcap=softcap))
+                                     softcap=softcap, q_offset=q_offset))
     return out.transpose(1, 2)

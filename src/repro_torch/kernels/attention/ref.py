@@ -115,8 +115,10 @@ def attention_bwd_ref(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` in the dtypes of q, k and v, computed in float32."""
+    """``(dq, dk, dv)`` in the dtypes of q, k and v, computed in float32
+    (query row ``i`` masked as the global row ``q_offset + i``)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -129,7 +131,7 @@ def attention_bwd_ref(
     delta = (gf * out.to(f32).reshape(b, hkv, g, sq, d)).sum(dim=-1)
     u = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)        # pre-cap scores
     s = softcap_fn(u, softcap) if softcap > 0 else u
-    mask = _mask(sq, skv, causal=causal, window=window, q_offset=0,
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
                  skv_valid=skv, device=q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.exp(s - lse5[..., None])
@@ -166,6 +168,7 @@ def attention_bwd_rounded_ref(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
     terms: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`attention_bwd_ref` as K4b's tensor-core route rounds it:
@@ -188,7 +191,7 @@ def attention_bwd_rounded_ref(
     delta = (gf * out.to(f32).reshape(b, hkv, g, sq, d)).sum(dim=-1)
     u = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
     s = softcap_fn(u, softcap) if softcap > 0 else u
-    mask = _mask(sq, skv, causal=causal, window=window, q_offset=0,
+    mask = _mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
                  skv_valid=skv, device=q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.exp(s - lse5[..., None])

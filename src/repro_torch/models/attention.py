@@ -147,16 +147,6 @@ def _expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                  for t in (k, v))
 
 
-def _no_offset(q_offset: int) -> None:
-    # K4, like the Pallas kernel, counts query rows from 0; a chunked
-    # prefill's offset would shift the causal and window masks
-    if q_offset != 0:
-        raise NotImplementedError(
-            f"q_offset={q_offset}: the attention kernel masks from query "
-            "row 0 (no chunked prefill)"
-        )
-
-
 def flash_attention(
     q: torch.Tensor,             # (B, Sq, Hq, D)
     k: torch.Tensor,             # (B, Skv, Hkv, D)
@@ -167,10 +157,13 @@ def flash_attention(
     q_offset: int = 0,
     attn_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Global attention through K4 (``models/attention.py:225``)."""
-    _no_offset(q_offset)
+    """Global attention through K4 (``models/attention.py:225``).
+    ``q_offset`` is the global index of query row 0 (a chunked prefill's
+    chunk over its whole prefix of keys); every mask reads query row ``i``
+    as ``q_offset + i``. A call that leaves a row no live key raises
+    ``ValueError`` (:func:`~repro_torch.kernels.attention.ops.flash_attention`)."""
     return attn_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                    softcap=attn_softcap)
+                                    softcap=attn_softcap, q_offset=q_offset)
 
 
 def local_attention(
@@ -184,8 +177,12 @@ def local_attention(
 ) -> torch.Tensor:
     """Causal sliding-window attention through K4
     (``models/attention.py:252``). A window at or past the sequence masks
-    nothing more than causality, as the reference's ``min(window, s)``."""
-    _no_offset(q_offset)
+    nothing more than causality, as the reference's ``min(window, s)``.
+    q and k share their positions here, so ``q_offset`` shifts query and
+    key indices alike, as in the reference (whose only term of it beyond
+    that masks the padded rows it drops): any offset computes what 0
+    does, and K4 is called at 0."""
+    del q_offset
     return attn_ops.flash_attention(q, k, v, causal=True, window=window,
                                     softcap=attn_softcap)
 

@@ -135,12 +135,22 @@ def test_model_local_attention_vs_jax(s, window):
 
 
 def test_model_attention_refuses_a_query_offset():
-    _, (tq, tk, tv) = _both(_qkv(5, 1, 8, 8, 2, 2, 16), jnp.float32,
-                            torch.float32)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        port_attn.flash_attention(tq, tk, tv, q_offset=3)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        port_attn.local_attention(tq, tk, tv, window=4, q_offset=3)
+    """A query offset that leaves a query row no live key (the window's
+    end before the keys', ``q_offset + Sq - Skv >= window``) is refused
+    with ``ValueError``; one that leaves every row a live key computes
+    what the reference computes, and the local path computes at any
+    offset."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(5, 1, 8, 8, 2, 2, 16),
+                                       jnp.float32, torch.float32)
+    got = port_attn.flash_attention(tq, tk, tv, q_offset=3, window=4)
+    want = jax_attn.flash_attention(jq, jk, jv, q_offset=3, window=4)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="q_offset"):
+        port_attn.flash_attention(tq, tk, tv, q_offset=4, window=4)
+    np.testing.assert_allclose(
+        _np(port_attn.local_attention(tq, tk, tv, window=4, q_offset=3)),
+        _np(jax_attn.local_attention(jq, jk, jv, window=4, q_offset=3)),
+        atol=2e-5, rtol=2e-5)
 
 
 def test_cpu_tensors_take_the_plain_version_not_the_kernel():

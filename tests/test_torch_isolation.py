@@ -34,6 +34,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.swarm, repro_torch.kernels.checksum\n"
         "import repro_torch.kernels.nvcc, repro_torch.data\n"
         "import repro_torch.examples.checkpoint_broadcast\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.serve_lm\n"
+        "import repro_torch.examples.train_lm\n"
+        "import repro_torch.examples.dataset_swarm\n"
+        "import repro_torch.examples.hybrid_origin\n"
+        "import repro_torch.examples.mirror_fabric\n"
+        "import repro_torch.examples.adversarial_swarm\n"
+        "import repro_torch.examples.self_healing\n"
+        "import repro_torch.examples.tail_hedging\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serve\n"
         "import repro_torch.launch.serve, repro_torch.kernels.attention\n"
         "import repro_torch.kernels.ssd, repro_torch.kernels.rglru\n"
