@@ -1169,12 +1169,24 @@ def k2_device_ops(kernels, args, dev):
         kernels.waterfill_cuda(*args)
         torch.cuda.synchronize()
     ops = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = ("waterfill_kernel" if "waterfill_kernel" in e.name
-                    else e.name[:80])
-            ops[name] = ops.get(name, 0) + 1
+    for e in device_events(prof):
+        name = ("waterfill_kernel" if "waterfill_kernel" in e.name
+                else e.name[:80])
+        ops[name] = ops.get(name, 0) + 1
     return ops
+
+
+def device_events(prof):
+    """The kernels, copies and fills of a finished ``torch.profiler`` run.
+    A ``record_function`` span open while the device works is recorded a
+    second time on the device's timeline (``gpu_user_annotation``), as a
+    CUDA event covering the work launched inside it; those copies are
+    skipped, as the profiler's own table skips them."""
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 def check_k2(kernels, dev, tables):
@@ -4248,9 +4260,10 @@ def device_breakdown(fn) -> tuple[float, dict]:
     """``fn()`` under ``torch.profiler``: its wall in seconds (synchronised;
     the profiler's overhead in it) and the device time in ms of the CUDA
     kernels and copies it ran, by category: K4b, K4, matrix products
-    (cuBLAS/CUTLASS kernels) and the rest."""
+    (cuBLAS/CUTLASS kernels) and the rest. The device-side copies of the
+    program's ``record_function`` spans are not device work and are left
+    out (:func:`device_events`)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4261,9 +4274,7 @@ def device_breakdown(fn) -> tuple[float, dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     ms = collections.Counter()
-    for event in prof.events():
-        if event.device_type != DeviceType.CUDA:
-            continue
+    for event in device_events(prof):
         name = event.name
         kind = ("K4b" if "bwd::" in name else
                 "K4" if "attn_fwd_kernel" in name else

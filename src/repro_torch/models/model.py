@@ -51,6 +51,7 @@ from torch.distributed.tensor.experimental import (
 
 from ..compat import SumOver, all_reduce, resolve_device, set_mesh
 from ..configs.base import ModelConfig
+from ..spans import span
 from . import transformer as tf
 from .convert import draw_into
 from .layers import ParamTree, abstract_params, param_axes
@@ -216,8 +217,9 @@ def build_model(cfg: ModelConfig, device=None,
         a decoder-only config (the reference's ``_memory``)."""
         if cfg.encoder_layers <= 0:
             return None
-        src = torch.as_tensor(batch["src_embeds"]).to(dev, cdtype)
-        return tf.encoder_apply(params["encoder"], src, cfg, ep)
+        with span("model.encoder"):
+            src = torch.as_tensor(batch["src_embeds"]).to(dev, cdtype)
+            return tf.encoder_apply(params["encoder"], src, cfg, ep)
 
     def decode_batch(params: Params, batch: dict, *, want_cache: bool = False,
                      last_only: bool = False):
@@ -258,18 +260,20 @@ def build_model(cfg: ModelConfig, device=None,
 
     def prefill_fn(params: Params, batch: dict):
         """Process the prompt; returns (last-position logits, cache)."""
-        logits, _, cache = forward(params, batch, want_cache=True,
-                                   last_only=True)
-        return _plain(logits, batch["tokens"]), cache
+        with span("model.prefill"):
+            logits, _, cache = forward(params, batch, want_cache=True,
+                                       last_only=True)
+            return _plain(logits, batch["tokens"]), cache
 
     @torch.no_grad()
     def decode_fn(params: Params, token: torch.Tensor, position: torch.Tensor,
                   cache: Cache, cache_len: int):
-        with implicit_replication():
-            logits, cache = tf.decode_step(params, token.to(dev),
-                                           position.to(dev), cache,
-                                           int(cache_len), cfg, ep)
-        return _plain(logits, token), cache
+        with span("model.decode_step"):
+            with implicit_replication():
+                logits, cache = tf.decode_step(params, token.to(dev),
+                                               position.to(dev), cache,
+                                               int(cache_len), cfg, ep)
+            return _plain(logits, token), cache
 
     def cache_init(batch: int, capacity: int, cross_len: int = 0) -> Cache:
         return tf.cache_init(cfg, batch, capacity, cdtype, dev, cross_len)

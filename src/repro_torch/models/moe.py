@@ -60,6 +60,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..compat import SumOver, mesh_axes
 from ..configs.base import ModelConfig
+from ..spans import span
 from .layers import EMBED, EXPERTS, EXPERTS_DP, MLP, ParamSpec, mlp_apply, mlp_specs
 
 
@@ -201,17 +202,22 @@ def _route_and_compute(
     """Returns (y2d partial output, lb_loss, z_loss). fp32 router."""
     t, d = x2d.shape
     k = cfg.top_k
-    r = _route(x2d, params["router"], cfg, capacity)
-    local_sel = (r.ids >= e_start) & (r.ids < e_start + e_local) & r.keep
-    slots = e_local * capacity
-    dest = torch.where(local_sel, (r.ids - e_start) * capacity + r.pos,
-                       slots)
-    h = _dispatch(x2d, dest, k, slots).reshape(e_local, capacity, d)
-    y = _experts(h, params["w_gate"] if "w_gate" in params else None,
-                 params["w_up"], params["w_down"], cfg.act)
-    weight = (r.gates.reshape(-1) * local_sel).to(x2d.dtype)
-    y2d = _combine(y.reshape(slots, d), dest, weight, t, k)
-    lb, z = _aux_losses(r, cfg)
+    with span("moe.route"):
+        r = _route(x2d, params["router"], cfg, capacity)
+    with span("moe.dispatch"):
+        local_sel = (r.ids >= e_start) & (r.ids < e_start + e_local) & r.keep
+        slots = e_local * capacity
+        dest = torch.where(local_sel, (r.ids - e_start) * capacity + r.pos,
+                           slots)
+        h = _dispatch(x2d, dest, k, slots).reshape(e_local, capacity, d)
+    with span("moe.experts"):
+        y = _experts(h, params["w_gate"] if "w_gate" in params else None,
+                     params["w_up"], params["w_down"], cfg.act)
+    with span("moe.combine"):
+        weight = (r.gates.reshape(-1) * local_sel).to(x2d.dtype)
+        y2d = _combine(y.reshape(slots, d), dest, weight, t, k)
+    with span("moe.aux"):
+        lb, z = _aux_losses(r, cfg)
     return y2d, lb, z
 
 
@@ -311,24 +317,33 @@ def moe_apply_a2a(
         bl, sl, _ = x_loc.shape
         t = bl * sl
         x2d = x_loc.reshape(t, d).to(cdtype)
-        r = _route(x2d, router, cfg, cap)
-        dest = torch.where(r.keep, r.ids * cap + r.pos, e * cap)
-        send = _dispatch(x2d, dest, k, e * cap).reshape(e, cap, d)
-        recv = _a2a_wire(send, data_group) if n_data > 1 else send
+        with span("moe.route"):
+            r = _route(x2d, router, cfg, cap)
+        with span("moe.dispatch"):
+            dest = torch.where(r.keep, r.ids * cap + r.pos, e * cap)
+            send = _dispatch(x2d, dest, k, e * cap).reshape(e, cap, d)
+        recv = send
+        if n_data > 1:
+            with span("moe.all_to_all"):
+                recv = _a2a_wire(send, data_group)
         # recv[i*e_local + le] = sender i's capacity slots for my expert le
         h = recv.reshape(n_data, e_local, cap, d).transpose(0, 1) \
             .reshape(e_local, n_data * cap, d)
         # partial over 'model'
-        y = _experts(h, wg, wu, wd, cfg.act).to(x2d.dtype)
+        with span("moe.experts"):
+            y = _experts(h, wg, wu, wd, cfg.act).to(x2d.dtype)
         back = y.reshape(e_local, n_data, cap, d).transpose(0, 1) \
             .reshape(e, cap, d)
         if n_data > 1:
-            back = _a2a_wire(back, data_group)
-        weight = (r.gates.reshape(-1) * r.keep).to(x2d.dtype)
-        y2d = _combine(back.reshape(e * cap, d), dest, weight, t, k)
-        if model_group is not None:
-            y2d = SumOver.apply(y2d, [model_group], 1)
-        lb, z = _aux_losses(r, cfg)
+            with span("moe.all_to_all"):
+                back = _a2a_wire(back, data_group)
+        with span("moe.combine"):
+            weight = (r.gates.reshape(-1) * r.keep).to(x2d.dtype)
+            y2d = _combine(back.reshape(e * cap, d), dest, weight, t, k)
+            if model_group is not None:
+                y2d = SumOver.apply(y2d, [model_group], 1)
+        with span("moe.aux"):
+            lb, z = _aux_losses(r, cfg)
         # the mean over the batch axes: the ranks of 'model' hold equal values
         lb = SumOver.apply(lb, groups, world)
         z = SumOver.apply(z, groups, world)

@@ -51,6 +51,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..spans import span
 from . import attention as attn
 from .layers import (
     BATCH_AXES, MODEL_AXIS, constrain, constrain_bsd, embed_logits, gather_sp,
@@ -185,8 +186,10 @@ def _norm(x: torch.Tensor, gamma: torch.Tensor, cfg: ModelConfig
 def _ffn_apply(params, x: torch.Tensor, cfg: ModelConfig, ep: EPContext
                ) -> tuple[torch.Tensor, dict]:
     if cfg.is_moe:
-        return moe_apply(params, x, cfg, ep)
-    return mlp_apply(params, x, cfg.act), {}
+        with span("moe"):
+            return moe_apply(params, x, cfg, ep)
+    with span("block.mlp"):
+        return mlp_apply(params, x, cfg.act), {}
 
 
 def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
@@ -206,13 +209,15 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
         h, (hl, tail) = rglru_sequence(
             params["rec"], _norm(x, params["ln1"], cfg), cfg)
         x = _residual(x, h)
-        x = _residual(x, mlp_apply(params["ffn"],
-                                   _norm(x, params["ln2"], cfg), cfg.act))
-        return x, {"h": hl, "conv": tail}, {}
-    h, (k, v) = attn.attention_sequence(
-        params["attn"], _norm(x, params["ln1"], cfg), positions,
-        cfg, local=kind == "local_attn", causal=causal,
-    )
+        with span("block.mlp"):
+            h = mlp_apply(params["ffn"], _norm(x, params["ln2"], cfg),
+                          cfg.act)
+        return _residual(x, h), {"h": hl, "conv": tail}, {}
+    with span("block.attention"):
+        h, (k, v) = attn.attention_sequence(
+            params["attn"], _norm(x, params["ln1"], cfg), positions,
+            cfg, local=kind == "local_attn", causal=causal,
+        )
     x = _residual(x, h)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = attn.quantize_kv(k)
@@ -221,15 +226,17 @@ def block_apply_seq(params, x: torch.Tensor, positions: torch.Tensor,
     else:
         cache = {"self": {"k": k, "v": v}}
     if memory is not None and "cross" in params:
-        mem_k, mem_v = attn.project_kv(params["cross"], memory, cfg, None,
-                                       rope=False)
-        q = attn.project_q(params["cross"],
-                           _norm(x, params["ln_cross"], cfg),
-                           cfg, None, rope=False)
-        ctx = attn.flash_attention(q, *attn._expand_kv(q, mem_k, mem_v),
-                                   causal=False,
-                                   attn_softcap=cfg.attn_logit_softcap)
-        x = _residual(x, attn.o_proj(params["cross"], ctx))
+        with span("block.attention"):
+            mem_k, mem_v = attn.project_kv(params["cross"], memory, cfg,
+                                           None, rope=False)
+            q = attn.project_q(params["cross"],
+                               _norm(x, params["ln_cross"], cfg),
+                               cfg, None, rope=False)
+            ctx = attn.flash_attention(q, *attn._expand_kv(q, mem_k, mem_v),
+                                       causal=False,
+                                       attn_softcap=cfg.attn_logit_softcap)
+            h = attn.o_proj(params["cross"], ctx)
+        x = _residual(x, h)
         cache["cross"] = {"k": mem_k, "v": mem_v}
     h, aux = _ffn_apply(params["ffn"],
                         _norm(x, params["ln2"], cfg), cfg, ep)
@@ -254,19 +261,23 @@ def block_apply_step(params, x: torch.Tensor, position: torch.Tensor,
             params["rec"], _norm(x, params["ln1"], cfg), cache,
             cfg)
         x = _residual(x, h)
-        x = _residual(x, mlp_apply(params["ffn"],
-                                   _norm(x, params["ln2"], cfg), cfg.act))
-        return x, state
-    h, _ = attn.attention_step(
-        params["attn"], _norm(x, params["ln1"], cfg), position,
-        cache["self"], cache_len, cfg, local=kind == "local_attn",
-    )
+        with span("block.mlp"):
+            h = mlp_apply(params["ffn"], _norm(x, params["ln2"], cfg),
+                          cfg.act)
+        return _residual(x, h), state
+    with span("block.attention"):
+        h, _ = attn.attention_step(
+            params["attn"], _norm(x, params["ln1"], cfg), position,
+            cache["self"], cache_len, cfg, local=kind == "local_attn",
+        )
     x = _residual(x, h)
     if "cross" in cache and "cross" in params:
-        h, _ = attn.attention_step(
-            params["cross"], _norm(x, params["ln_cross"], cfg),
-            position, cache["cross"], cache_len, cfg, local=False, cross=True,
-        )
+        with span("block.attention"):
+            h, _ = attn.attention_step(
+                params["cross"], _norm(x, params["ln_cross"], cfg),
+                position, cache["cross"], cache_len, cfg, local=False,
+                cross=True,
+            )
         x = _residual(x, h)
     h, _ = _ffn_apply(params["ffn"], _norm(x, params["ln2"], cfg),
                       cfg, ep)
@@ -311,12 +322,13 @@ def encoder_apply(params, embeds: torch.Tensor, cfg: ModelConfig,
 
 
 def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = _norm(x, params["final_ln"], cfg)
-    logits = constrain(embed_logits(params["embed"], x),
-                       (BATCH_AXES, None, MODEL_AXIS))
-    if cfg.final_logit_softcap > 0:
-        logits = softcap(logits, cfg.final_logit_softcap)
-    return logits
+    with span("model.head"):
+        x = _norm(x, params["final_ln"], cfg)
+        logits = constrain(embed_logits(params["embed"], x),
+                           (BATCH_AXES, None, MODEL_AXIS))
+        if cfg.final_logit_softcap > 0:
+            logits = softcap(logits, cfg.final_logit_softcap)
+        return logits
 
 
 # the MoE aux losses, summed over the layers

@@ -30,6 +30,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models import transformer as tf
 from ..models.model import ModelBundle, default_positions
+from ..spans import span
 
 
 @dataclasses.dataclass
@@ -56,11 +57,13 @@ class ServeEngine:
     # ------------------------------------------------------------- sampling
     def _sample(self, logits: torch.Tensor,
                 gen: torch.Generator) -> torch.Tensor:
-        if self.cfg.temperature <= 0:
-            return logits.argmax(dim=-1).to(torch.int32)
-        probs = torch.softmax(logits.to(torch.float32) / self.cfg.temperature,
-                              dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+        with span("serve.sample"):
+            if self.cfg.temperature <= 0:
+                return logits.argmax(dim=-1).to(torch.int32)
+            probs = torch.softmax(
+                logits.to(torch.float32) / self.cfg.temperature, dim=-1)
+            return torch.multinomial(probs, 1,
+                                     generator=gen)[:, 0].to(torch.int32)
 
     # ------------------------------------------------------------- generate
     def generate(
@@ -69,33 +72,36 @@ class ServeEngine:
         src_embeds=None,                 # (B, S_enc, D), encoder-decoders
         max_new_tokens: Optional[int] = None,
     ) -> np.ndarray:
-        mcfg, dev = self.mcfg, self.device
-        new = max_new_tokens or self.cfg.max_new_tokens
-        b, s = prompts.shape
-        batch = {"tokens": torch.as_tensor(
-            np.ascontiguousarray(prompts, np.int32), device=dev)}
-        if mcfg.rope_mode == "mrope":
-            batch["positions"] = default_positions(mcfg, b, s, device=dev)
-        if src_embeds is not None:
-            batch["src_embeds"] = torch.as_tensor(src_embeds).to(dev)
-        logits, cache = self.bundle.prefill_fn(self.params, batch)
-        cache = tf.pad_cache_to(cache, mcfg, s + new)
+        with span("serve.generate"):
+            mcfg, dev = self.mcfg, self.device
+            new = max_new_tokens or self.cfg.max_new_tokens
+            b, s = prompts.shape
+            batch = {"tokens": torch.as_tensor(
+                np.ascontiguousarray(prompts, np.int32), device=dev)}
+            if mcfg.rope_mode == "mrope":
+                batch["positions"] = default_positions(mcfg, b, s, device=dev)
+            if src_embeds is not None:
+                batch["src_embeds"] = torch.as_tensor(src_embeds).to(dev)
+            logits, cache = self.bundle.prefill_fn(self.params, batch)
+            cache = tf.pad_cache_to(cache, mcfg, s + new)
 
-        gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
-        out = np.zeros((b, new), np.int32)
-        token = self._sample(logits[:, 0], gen)
-        for i in range(new):
-            out[:, i] = token.cpu().numpy()
-            if i == new - 1:
-                break
-            pos = default_positions(mcfg, b, 1, offset=s + i, device=dev)
-            logits, cache = self.bundle.decode_fn(
-                self.params, token[:, None], pos, cache, s + i + 1)
+            gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
+            out = np.zeros((b, new), np.int32)
             token = self._sample(logits[:, 0], gen)
-            if self.cfg.eos_id >= 0 and bool((token == self.cfg.eos_id).all()):
-                out[:, i + 1:] = self.cfg.eos_id
-                break
-        return out
+            for i in range(new):
+                with span("serve.token_to_host"):
+                    out[:, i] = token.cpu().numpy()
+                if i == new - 1:
+                    break
+                pos = default_positions(mcfg, b, 1, offset=s + i, device=dev)
+                logits, cache = self.bundle.decode_fn(
+                    self.params, token[:, None], pos, cache, s + i + 1)
+                token = self._sample(logits[:, 0], gen)
+                if (self.cfg.eos_id >= 0
+                        and bool((token == self.cfg.eos_id).all())):
+                    out[:, i + 1:] = self.cfg.eos_id
+                    break
+            return out
 
     # ------------------------------------------------------------- continuous batching
     def serve_queue(

@@ -40,6 +40,7 @@ plain mesh step.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple, Optional
 
@@ -57,6 +58,7 @@ from ..launch.partitioning import (
 from ..models.layers import ParamTree
 from ..models.model import ModelBundle
 from ..models.transformer import layer_specs
+from ..spans import span
 from . import optimizer as opt
 from .checkpoint import reference_key
 
@@ -114,7 +116,7 @@ def _grads_and_metrics(bundle: ModelBundle, tcfg: TrainConfig,
     def grad(loss):
         # the recomputation of remat runs in here: plain constants (RoPE's
         # frequencies) meet DTensors again
-        with implicit_replication():
+        with span("train.backward"), implicit_replication():
             return torch.autograd.grad(loss, tensors)
 
     def pinned(grads):
@@ -124,24 +126,30 @@ def _grads_and_metrics(bundle: ModelBundle, tcfg: TrainConfig,
                 if isinstance(g, DTensor) else g
                 for n, g in zip(names, grads)]
 
+    def forward(batch):
+        with span("train.forward"):
+            return bundle.loss_fn(params, batch)
+
     k = tcfg.microbatches
     if k <= 1:
-        loss, metrics = bundle.loss_fn(params, batch)
+        loss, metrics = forward(batch)
         grads = pinned(grad(loss))
         return dict(zip(names, grads)), _detached(metrics)
     acc = None
     metrics = {}
     for i in range(k):
-        loss, metrics = bundle.loss_fn(params, _slice(batch, i, k))
+        loss, metrics = forward(_slice(batch, i, k))
         grads = pinned(grad(loss))
-        if acc is None:
-            acc = {n: torch.zeros_like(g, dtype=torch.float32)
-                   for n, g in zip(names, grads)}
-        for n, g in zip(names, grads):
-            acc[n] += g.to(torch.float32)
+        with span("train.accumulate"):
+            if acc is None:
+                acc = {n: torch.zeros_like(g, dtype=torch.float32)
+                       for n, g in zip(names, grads)}
+            for n, g in zip(names, grads):
+                acc[n] += g.to(torch.float32)
         del grads, loss
-    for g in acc.values():
-        g /= k
+    with span("train.accumulate"):
+        for g in acc.values():
+            g /= k
     return acc, _detached(metrics)
 
 
@@ -244,6 +252,17 @@ def shard_train_state(state: TrainState, bundle: ModelBundle, mesh
                                    residual=shard(o.residual)))
 
 
+def _in_step_span(step):
+    """``step`` run inside the ``train.step`` span."""
+
+    @functools.wraps(step)
+    def train_step(state: TrainState, batch: dict):
+        with span("train.step"):
+            return step(state, batch)
+
+    return train_step
+
+
 def make_train_step(
     bundle: ModelBundle,
     tcfg: TrainConfig,
@@ -262,15 +281,16 @@ def make_train_step(
 
     def plain_step(state: TrainState, batch: dict):
         grads, metrics = _grads_and_metrics(bundle, tcfg, state.params, batch)
-        params, ostate, ometrics = opt.adamw_update(
-            grads, state.opt, state.params, tcfg)
+        with span("train.optimizer"):
+            params, ostate, ometrics = opt.adamw_update(
+                grads, state.opt, state.params, tcfg)
         return TrainState(params, ostate), {**metrics, **ometrics}
 
     if mesh is None:
         if grad_shardings is not None:
             raise ValueError("grad_shardings: the layout pin needs a mesh "
                              "(make_train_step(..., mesh=))")
-        return plain_step
+        return _in_step_span(plain_step)
 
     axes = mesh_axes(mesh)
     baxes = batch_axes(mesh)
@@ -310,8 +330,9 @@ def make_train_step(
             grads, metrics = _grads_and_metrics(
                 bundle, tcfg, state.params, _batch_block(batch, mesh, baxes),
                 targets)
-        params, ostate, ometrics = opt.adamw_update(
-            grads, state.opt, state.params, tcfg)
+        with span("train.optimizer"):
+            params, ostate, ometrics = opt.adamw_update(
+                grads, state.opt, state.params, tcfg)
         metrics = {k: _plain(v) for k, v in {**metrics, **ometrics}.items()}
         return TrainState(params, ostate), metrics
 
@@ -337,8 +358,9 @@ def make_train_step(
                                        run_check=False, shape=leaves[n].shape,
                                        stride=leaves[n].stride())
                  for n in grads}
-        params, ostate, ometrics = opt.adamw_update(
-            grads, state.opt, state.params, tcfg)
+        with span("train.optimizer"):
+            params, ostate, ometrics = opt.adamw_update(
+                grads, state.opt, state.params, tcfg)
         metrics = {k: _plain(v) for k, v in metrics.items()}
         for v in metrics.values():          # the mean over the pods
             dist.all_reduce(v, group=pod_group)
@@ -346,7 +368,7 @@ def make_train_step(
         metrics.update({k: _plain(v) for k, v in ometrics.items()})
         return TrainState(params, ostate), metrics
 
-    return compressed_step if compress else mesh_step
+    return _in_step_span(compressed_step if compress else mesh_step)
 
 
 def _on_mesh(bundle: ModelBundle, leaves: dict, mesh, placements: dict):
